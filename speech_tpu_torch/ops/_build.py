@@ -17,7 +17,7 @@ import threading
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["build_dir", "load_kernels", "nvcc_command"]
+__all__ = ["load_kernels"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -30,7 +30,7 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def build_dir() -> Path:
+def _build_dir() -> Path:
     """``build/speech_tpu_torch`` beside the package."""
     return _PKG.parent / "build" / "speech_tpu_torch"
 
@@ -49,34 +49,28 @@ def _nvcc() -> str:
     )
 
 
-def nvcc_command(src: Path, out: Path, extra=()) -> list:
-    return [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(out), str(src)]
-
-
 def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
+    return _build_dir() / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def load_kernels(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
+def load_kernels() -> Dict[str, ctypes.CDLL]:
     """Build (where needed) and load every kernel source; returns
-    ``{source stem: CDLL}``.  ``verbose`` adds ``-Xptxas -v`` and prints
-    the compiler's report of registers and shared memory."""
+    ``{source stem: CDLL}``."""
     with _lock:
         if _libs:
             return _libs
         sources = sorted(CSRC.glob("*.cu"))
-        build_dir().mkdir(parents=True, exist_ok=True)
+        _build_dir().mkdir(parents=True, exist_ok=True)
         jobs = []
         for src in sources:
             target = _target(src)
-            if target.exists() and not verbose:
+            if target.exists():
                 continue
             tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-            extra = ("-Xptxas", "-v") if verbose else ()
             proc = subprocess.Popen(
-                nvcc_command(src, tmp, extra),
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT,
                 text=True,
@@ -88,8 +82,6 @@ def load_kernels(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
             if proc.returncode != 0:
                 errors.append(f"nvcc failed on {src.name}:\n{log}")
                 continue
-            if verbose:
-                print(log, flush=True)
             os.replace(tmp, target)
         if errors:
             raise RuntimeError("\n".join(errors))

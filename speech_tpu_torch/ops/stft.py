@@ -24,6 +24,7 @@ both operands (|digit| <= 64) and power-of-two pair weights; 'double' keeps
 pairs with ``i + j <= 5``, 'accurate' ``i + j <= 4``.
 """
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -280,15 +281,25 @@ def windowed_dft_matrices(window: np.ndarray, dft_size: int):
 # --- device path (torch) -----------------------------------------------------
 
 
+@contextlib.contextmanager
 def ieee_float32():
-    """Turn TF32 off for float32 products and convolutions.
+    """Turn TF32 off for the float32 products and convolutions inside the
+    block, and give the caller's settings back after it.
 
     The port's float32 contract is IEEE float32 (the reference's
-    'highest'); TF32 keeps about three decimal digits.  Called before every
-    device product rather than once at import, so that a caller who turns
-    TF32 on elsewhere cannot change the features."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    'highest'); TF32 keeps about three decimal digits.  Wrapped around
+    every feature computation rather than set once at import, so that a
+    caller who turns TF32 on for their own model keeps it there and cannot
+    change the features."""
+    matmul = torch.get_float32_matmul_precision()
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("highest")
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(matmul)
+        torch.backends.cudnn.allow_tf32 = cudnn
 
 
 def _resolve_fft_mode(mode: Optional[str], dft_size: int) -> str:
@@ -399,16 +410,16 @@ def stft_feats_from_frames(
     floor].  The float tiers 'highest', 'high' and 'default' all compute in
     IEEE float32 (or float64) here.
     """
-    ieee_float32()
     mode = _resolve_fft_mode(fft_mode, dft_size)
-    if precision in ("double", "accurate"):
-        feats = _digit_feats(frames, params, use_power, dft_size)
-    elif mode != "fft" and dft_size % 2 == 0:
-        feats = _matmul_feats_nyquist_split(frames, params, use_power)
-    else:
-        power_spec = power_half_spectrum(frames, params, dft_size, fft_mode)
-        spec = power_spec if use_power else torch.sqrt(power_spec)
-        feats = torch.matmul(spec, params["weights"])
+    with ieee_float32():
+        if precision in ("double", "accurate"):
+            feats = _digit_feats(frames, params, use_power, dft_size)
+        elif mode != "fft" and dft_size % 2 == 0:
+            feats = _matmul_feats_nyquist_split(frames, params, use_power)
+        else:
+            power_spec = power_half_spectrum(frames, params, dft_size, fft_mode)
+            spec = power_spec if use_power else torch.sqrt(power_spec)
+            feats = torch.matmul(spec, params["weights"])
     if use_log:
         feats = floor_log(feats, log_floor)
     if include_energy:

@@ -228,6 +228,21 @@ def test_pack_groups_layout_decodes_to_gmats():
             assert not block[K_:].any()
 
 
+def test_packed_groups_built_once_per_gmats():
+    """The int8 wrapper packs a gmats tensor once and reuses the layout
+    until the tensor changes in place."""
+    _, tc = _pair(precision="double")
+    gmats, offsets = tc.params["i8k_gmats"], tc.params["i8k_offsets"]
+    first = K._packed_groups(gmats, offsets, tc.frame_length)
+    assert K._packed_groups(gmats, offsets, tc.frame_length) is first
+    gmats.add_(0)  # bumps the version: the packing is stale
+    again = K._packed_groups(gmats, offsets, tc.frame_length)
+    assert again is not first and torch.equal(again[0], first[0])
+    slot = id(gmats)
+    del tc, gmats
+    assert slot not in K._PACKED
+
+
 def test_dft384_lane_split_runs_int8_route():
     """dft 384 (nb 192, not 128-aligned) takes the int8 route and matches
     the Pallas computer (tests/test_pallas.py:345)."""

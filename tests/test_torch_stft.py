@@ -83,3 +83,34 @@ def test_digitize_frames_exact_and_half_to_even():
     got_planes, got_scale = TS._digitize_frames(torch.tensor(x))
     assert np.array_equal(got_planes.numpy(), np.asarray(want_planes))
     assert np.array_equal(got_scale.numpy(), np.asarray(want_scale))
+
+
+@pytest.mark.parametrize("mode", ["highest32", "double32"])
+def test_feature_call_leaves_callers_tf32_settings(mode):
+    """The features run in IEEE float32, and the caller's TF32 settings
+    are the same after the call as before it."""
+    jc, _, tparams, frames, fft_mode, _ = _setup(mode, use_power=True)
+    spec = dict(
+        dft_size=jc.dft_size,
+        use_log=True,
+        use_power=True,
+        include_energy=True,
+        log_floor=1e-5,
+        fft_mode=fft_mode,
+        precision=jc._precision,
+    )
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cudnn.allow_tf32 = True
+        with TS.ieee_float32():
+            assert torch.get_float32_matmul_precision() == "highest"
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        TS.stft_feats_from_frames(torch.tensor(frames), tparams, **spec)
+        assert torch.get_float32_matmul_precision() == "high"
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
