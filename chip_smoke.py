@@ -12,13 +12,20 @@ Phases (each passes or the script exits non-zero):
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (128 x 15 s at 16 kHz; the fbank 40 config of
    ``bench.py``) and time both with CUDA events;
-4. drive the main path, ``STFTFrameComputer.compute_batch`` on 128 x 15 s,
+4. drive ``stft_feats_double`` (the base-256 digit kernel, B4, which no
+   computer route runs) at 128 x 15 s for 'double' and 'accurate', with
+   its launch counter set to 0 before and read after;
+5. drive the main path, ``STFTFrameComputer.compute_batch`` on 128 x 15 s,
    for every tier (and the ragged, int16 and 10.25 ms-shift variants),
    with every launch counter set to 0 before and read after: each kernel
-   must have been launched;
-5. hold 'double' on the card against a float64 CPU run of the port on
+   of that path must have been launched;
+6. drive the full chain of ``bench.py:514-539`` on 128 x 15 s (dither +
+   preemphasis, ``compute_batch`` at 'double', deltas, standardization,
+   stacking), counters again from 0, and hold it against the same chain
+   on the plain 'highest' path with the same noise;
+7. hold 'double' on the card against a float64 CPU run of the port on
    ``tests/audio/test.wav``;
-6. print the kernels line and, last, the device line.
+8. print the kernels line and, last, the device line.
 
 It imports torch, numpy and ``speech_tpu_torch`` only.
 """
@@ -35,6 +42,7 @@ import numpy as np
 
 # published H100 SXM peaks, dense (NVIDIA data sheet), at a 700 W limit
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
@@ -45,7 +53,13 @@ LOG_SPEC = dict(use_log=True, use_power=False, include_energy=True, log_floor=1e
 TOL_FLOAT = 1e-4  # f32 reduction order (tests/test_pallas.py:55)
 TOL_INT8 = 2e-6  # the digit tiers' exactness class (tests/test_pallas.py:175)
 TOL_F64 = 1e-5  # 'double' vs float64 on speech (tests/test_pallas.py:250)
-SOURCE = "speech_tpu_torch/csrc/stft_kernels.cu"
+# the chain on B2 vs on the plain 'highest' path: features within the float
+# tier's 1e-4, then float32 standardization scales each coefficient by
+# 1/std (std >= ~0.1 on the deltas)
+TOL_CHAIN = 1e-3
+SOURCE = "speech_tpu_torch/csrc/stft_kernels.cu"  # B1-B3
+DOUBLE_SOURCE = "speech_tpu_torch/csrc/double_kernels.cu"  # B4
+COMPUTE_PATH = ("stft_feats_rows", "stft_feats_frames", "stft_feats_int8")
 
 
 def fail(msg):
@@ -91,9 +105,11 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     import speech_tpu_torch  # noqa: F401  (the checkout's own package)
+    from speech_tpu_torch import pre
     from speech_tpu_torch.compute import STFTFrameComputer
     from speech_tpu_torch.ops import _build
     from speech_tpu_torch.ops import framing as F
+    from speech_tpu_torch.ops import postops
     from speech_tpu_torch.ops import stft_kernels as K
 
     # 1. build
@@ -193,10 +209,51 @@ def main():
         print(f"{name} vs plain: max abs {e['err']:.3e} (tol {e['tol']:g}); "
               f"{e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms", flush=True)
         check(e["err"] <= e["tol"], f"{name} disagrees with its plain version: {e['err']}")
+
+    # 4. B4, the base-256 digit kernel, on the same padded rows: 'double'
+    # (the default 13 pairs) and 'accurate' (n_x 4, cutoff 3: 10 pairs)
+    double_ms = {}
+    launches = {}
+    tiers = {"double": {}, "accurate": dict(n_x=4, cutoff=3)}
+    for precision, sched in tiers.items():
+        cd = computer(precision=precision)
+        p = cd.params
+        d_kw = dict(num_frames=mf, frame_length=fl, frame_shift=fs, dft_size=cd.dft_size,
+                    **LOG_SPEC, **sched)
+        got = K.stft_feats_double(padded, p, **d_kw)
+        want = K.stft_feats_double_plain(padded, p, **d_kw)
+        err = (got - want).abs().max().item()
+        print(f"stft_feats_double [{precision}] vs plain: max abs {err:.3e}", flush=True)
+        check(err <= TOL_INT8, f"stft_feats_double [{precision}] disagrees with its plain version: {err}")
+        double_ms[precision] = cuda_ms(lambda: K.stft_feats_double(padded, p, **d_kw))
+        plain_ms = cuda_ms(lambda: K.stft_feats_double_plain(padded, p, **d_kw), reps=3)
+        print(f"stft_feats_double [{precision}]: {double_ms[precision]:.3f} ms, "
+              f"plain {plain_ms:.3f} ms", flush=True)
+        if precision == "double":
+            nb = p["pdk_mask"].shape[0]
+            n_pairs = len(K._double_pairs(p, None, None))
+            tail = [p["pdk_" + k] for k in ("mats", "mixed_scale", "mask", "w_hi", "w_lo", "w_nyq")]
+            entries["stft_feats_double"] = dict(
+                replaces="speech_tpu/ops/pallas_stft.py:431 stft_feats_pallas_double (_double_rows_kernel :304)",
+                err=err, tol=TOL_INT8, ms=double_ms[precision], plain_ms=plain_ms,
+                ops=[
+                    (2 * frames_total * fl * 2 * nb * n_pairs, PEAK_BF16_FLOPS),
+                    # w_hi and w_lo: (nb x C) each; w_nyq: rank 1 (C)
+                    (2 * frames_total * nb * nf * 2 + 2 * frames_total * nf, PEAK_FP32_FLOPS),
+                ],
+                nbytes=bytes_of(padded, got, *tail), source=DOUBLE_SOURCE,
+            )
+        K.reset_launch_counts()
+        K.stft_feats_double(padded, p, **d_kw)
+        torch.cuda.synchronize()
+        count = K.launch_counts()["stft_feats_double"]
+        check(count == 1, f"stft_feats_double [{precision}] launched {count} times, not once")
+        launches["stft_feats_double"] = launches.get("stft_feats_double", 0) + count
+        del got, want
     del padded
     torch.cuda.empty_cache()
 
-    # 4. the main path at full size; counts from 0 just before, read after
+    # 5. the main path at full size; counts from 0 just before, read after
     paths = [
         ("double (auto)", computer(precision="double"), sigs, full),
         ("accurate (auto)", computer(precision="accurate"), sigs, full),
@@ -219,10 +276,11 @@ def main():
         feats, counts = comp.compute_batch(x, lengths)
         torch.cuda.synchronize()
         results[label] = (comp, feats, counts)
-    launches = K.launch_counts()
-    print(f"main path launches: {launches}", flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched by the main path")
+    main_counts = K.launch_counts()
+    print(f"main path launches: {main_counts}", flush=True)
+    for name in COMPUTE_PATH:
+        check(main_counts[name] > 0, f"{name} was not launched by the main path")
+        launches[name] = main_counts[name]
     for label, (comp, feats, counts) in results.items():
         want_frames = F.frame_count_np(n, comp.frame_length, comp.frame_shift)
         check(tuple(feats.shape) == (BATCH, want_frames, 41), f"{label}: shape {tuple(feats.shape)}")
@@ -243,7 +301,42 @@ def main():
         print(f"compute_batch {label}: {ms:.3f} ms median, "
               f"{audio_s / (ms / 1e3):.0f} audio-s/s", flush=True)
 
-    # 5. 'double' on the card vs a float64 run of the port on the CPU
+    # 6. the full chain: dither + preemphasis, compute_batch ('double':
+    # B2), deltas of order 2, standardization, stacking by 3; unit noise
+    # under a 3 Hz envelope (a ~26 dB swing, as syllables give speech)
+    envelope = 0.05 + np.abs(np.sin(2 * np.pi * 3.0 * np.arange(n) / RATE))
+    chain_sigs = torch.tensor((rng.randn(BATCH, n) * envelope).astype(np.float32), device=dev)
+    filts = postops.delta_filters(2)
+
+    def chain(comp):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = pre.preemphasize(pre.dither(gen, chain_sigs, 0.1))
+        feats, _ = comp.compute_batch(x, full)
+        feats = postops.standardize(postops.deltas(feats, filts))
+        return postops.stack(feats, 3, pad=True)
+
+    chain_double, chain_plain = computer(precision="double"), computer()
+    for comp in (chain_double, chain_plain):
+        comp.params
+    K.reset_launch_counts()
+    out = chain(chain_double)
+    torch.cuda.synchronize()
+    chain_counts = K.launch_counts()
+    print(f"full chain launches: {chain_counts}", flush=True)
+    check(chain_counts["stft_feats_int8"] == 1, "the full chain did not run the int8 kernel once")
+    check(tuple(out.shape) == (BATCH, 500, 369), f"full chain: shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "full chain: non-finite values")
+    diff = (out - chain(chain_plain)).abs().max().item()
+    print(f"full chain (double) vs plain 'highest' chain: max abs {diff:.3e} (tol {TOL_CHAIN:g})", flush=True)
+    check(diff <= TOL_CHAIN, f"full chain disagrees with the plain chain: {diff}")
+    del out
+    chain_ms = cuda_ms(lambda: chain(chain_double))
+    print(f"full chain (double): {chain_ms:.3f} ms median, "
+          f"{audio_s / (chain_ms / 1e3):.0f} audio-s/s", flush=True)
+    del chain_sigs
+    torch.cuda.empty_cache()
+
+    # 7. 'double' on the card vs a float64 run of the port on the CPU
     here = os.path.dirname(os.path.abspath(__file__))
     speech = read_wav(os.path.join(here, "tests", "audio", "test.wav"))
     speech = speech / np.abs(speech).max()
@@ -256,19 +349,21 @@ def main():
     print(f"double (card) vs float64 (CPU) on test.wav: max abs {err64:.3e}", flush=True)
     check(err64 <= TOL_F64, f"'double' vs float64: {err64}")
 
-    # 6. the kernels line, the card, the device line
+    # 8. the kernels line, the card, the device line
     kernels = []
     for name, e in entries.items():
         t_ops = sum(ops / peak for ops, peak in e["ops"]) * 1e3
         t_bytes = e["nbytes"] / PEAK_BYTES * 1e3
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": e["replaces"],
+            "name": name, "route": "cuda", "source": e.get("source", SOURCE),
+            "replaces": e["replaces"],
             "launches": launches[name], "max_abs_err": e["err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
         })
-    print(f"stft_feats_int8 accurate ms: {int8_ms['accurate']:.3f}", flush=True)
+    print(f"stft_feats_int8 accurate ms: {int8_ms['accurate']:.3f}; "
+          f"stft_feats_double accurate ms: {double_ms['accurate']:.3f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,8 +44,8 @@ _TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 _COMPACT_TORCH = (torch.int16, torch.int8, torch.uint8)
 _PRECISIONS = ("highest", "high", "default", "double", "accurate")
-_I8K_KEYS = ("gmats", "mixed_scale", "mask", "w_hi", "w_lo", "w_nyq")
-_SCALAR_KEYS = ("dft_cos_scale", "dft_sin_scale", "i8k_cos_scale")
+_TAIL_KEYS = ("mixed_scale", "mask", "w_hi", "w_lo", "w_nyq")
+_SCALAR_KEYS = ("dft_cos_scale", "dft_sin_scale", "i8k_cos_scale", "pdk_cos_scale")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -90,14 +90,11 @@ def params_from_jax(params: Mapping[str, np.ndarray]) -> dict:
     """The JAX computer's ``params`` (as numpy arrays; ``i8k_offsets`` the
     group tuple; scalars as they are) -> the port's params on the CPU.
 
-    Keeps the keys the port uses: bf16 digit matrices become (exactly
-    equal) float32, scalar scales Python floats, and the bf16 kernel's
-    ``pdk_*`` layout is dropped.
+    bf16 digit matrices become (exactly equal) float32 and scalar scales
+    Python floats.
     """
     out = {}
     for key, value in params.items():
-        if key.startswith("pdk_"):
-            continue
         if key == "i8k_offsets":
             out[key] = tuple(
                 (int(s), tuple(int(i) for i in xs), int(off), int(span))
@@ -225,6 +222,9 @@ class ShortTimeFourierTransformFrameComputer(LinearFilterBankFrameComputer):
     - 'double' and 'accurate': the exact digit tiers, float32 only.  On a
       GPU they run the fused int8 kernel when ``dft_size % 4 == 0`` (its
       pair schedule bakes in the tier), otherwise the plain digit path.
+      Their params also carry the base-256 layout (``pdk_*``) that
+      :func:`~speech_tpu_torch.ops.stft_kernels.stft_feats_double` takes;
+      as in the JAX package, no route of the computer runs it.
 
     ``fft_mode="pallas"`` selects the fused float kernel on the float
     tiers (the name is the JAX package's).
@@ -390,8 +390,9 @@ class ShortTimeFourierTransformFrameComputer(LinearFilterBankFrameComputer):
             keys |= {"dft_group_mats", "dft_group_weights", "weights_lo"}
             keys |= {"dft_cos_scale", "dft_sin_scale"}
             if self._dft_size % 4 == 0:
-                keys |= {"i8k_" + k for k in _I8K_KEYS}
-                keys |= {"i8k_cos_scale", "i8k_offsets"}
+                keys |= {p + k for p in ("i8k_", "pdk_") for k in _TAIL_KEYS}
+                keys |= {"i8k_gmats", "i8k_cos_scale", "i8k_offsets"}
+                keys |= {"pdk_mats", "pdk_cos_scale"}
         return keys
 
     def build_params(self, device) -> dict:
@@ -416,6 +417,20 @@ class ShortTimeFourierTransformFrameComputer(LinearFilterBankFrameComputer):
             params["dft_cos_scale"] = float(cs)
             params["dft_sin_scale"] = float(ss)
             if self._dft_size % 4 == 0:
+                # the base-256 digit kernel's layout (stft_feats_double)
+                pdk = _stft.digit_kernel_matrices(
+                    self._dft_cos,
+                    self._dft_sin,
+                    self._weights,
+                    ndig=(
+                        _stft._PAK_M_DIGITS
+                        if self._precision == "accurate"
+                        else _stft._PDK_M_DIGITS
+                    ),
+                )
+                params["pdk_cos_scale"] = float(pdk.pop("cos_scale"))
+                for name, arr in pdk.items():
+                    params["pdk_" + name] = tensor(arr)
                 i8 = _stft.int8_kernel_matrices(
                     self._dft_cos,
                     self._dft_sin,

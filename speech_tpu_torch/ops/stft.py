@@ -21,7 +21,10 @@ exact integer in float32, and equal-weight digit pairs run as one matmul
 (:func:`digit_group_matrices`).  The int8 kernel layout
 (:func:`int8_kernel_matrices`) uses base-128 digits with a margin bit on
 both operands (|digit| <= 64) and power-of-two pair weights; 'double' keeps
-pairs with ``i + j <= 5``, 'accurate' ``i + j <= 4``.
+pairs with ``i + j <= 5``, 'accurate' ``i + j <= 4``.  The base-256 digit
+kernel layout (:func:`digit_kernel_matrices`) keeps 4 x 4 planes and one
+dot per pair: 13 pairs (``i + j <= 4``) for 'double', 10 (``i + j <= 3``)
+for 'accurate'.
 """
 
 import contextlib
@@ -37,6 +40,7 @@ __all__ = [
     "digit_pair_schedule",
     "digit_group_schedule",
     "digit_group_matrices",
+    "digit_kernel_matrices",
     "int8_kernel_matrices",
     "fold_bank_to_weights",
     "windowed_dft_matrices",
@@ -45,6 +49,17 @@ __all__ = [
 ]
 
 _DIGIT_BASE = 64.0  # 7-bit signed digits: products <= 64^2, K-sums < 2^24
+# base-256 digit kernel: 4 x-planes (31 bits below the frame peak after the
+# one-bit scale margin, |x digit| <= 128) x 4 M-planes (32 bits of the
+# float64 DFT matrices, no margin: |M digit| <= 256); one dot per pair, so
+# a frame's sum stays below K * 2^15 <= 2^24 for K <= 512
+_PDK_BASE = 256.0
+_PDK_X_DIGITS = 4
+_PDK_M_DIGITS = 4
+_PDK_CUTOFF = 4  # 'double': i + j <= 4, 13 pairs, truncation ~2^-40
+_PAK_X_DIGITS = 4  # 'accurate': the same planes, pairs cut at i + j <= 3
+_PAK_M_DIGITS = 4
+_PAK_CUTOFF = 3
 _I8_BASE = 128.0
 _I8_X_DIGITS = 5
 _I8_M_DIGITS = 5
@@ -137,6 +152,63 @@ def digit_group_matrices(C: np.ndarray, S: np.ndarray):
     return mats, weights, cos_scale, sin_scale, n_im
 
 
+def _combined_layout(C, S, W, ndig: int, base: float, margin: bool):
+    """The digit kernels' shared lane layout ``[cos 0..nb-1 | nyq-cos, sin
+    1..nb-1]`` with ``nb = dft//2``: the Nyquist cosine column sits in the
+    sin block's identically-zero DC slot, so both blocks are exactly
+    ``nb`` wide (even DFT sizes only).
+
+    Returns ``mats (ndig, K, 2*nb)`` float32 digit planes and the tail
+    arrays: ``mixed_scale (nb,)`` (cos scale at DC, sin scale elsewhere),
+    ``mask (nb,)`` (zero at DC, one elsewhere: isolates the imaginary
+    part), ``w_hi`` / ``w_lo`` ``(nb, F)`` (filter weights for bins
+    0..nb-1, split f32-hi + residual), ``w_nyq (nb, F)`` (the Nyquist
+    weight row at DC, zeros elsewhere) and ``cos_scale``.
+    """
+    K, half = C.shape
+    if half % 2 != 1:
+        raise ValueError("even DFT sizes only (half = dft//2 + 1)")
+    nb = half - 1
+    cos_planes, cos_scale = digitize_matrix(C, ndig, base, margin=margin)
+    sin_planes, sin_scale = digitize_matrix(S, ndig, base, margin=margin)
+    mats = np.zeros((ndig, K, 2 * nb), np.float32)
+    for j in range(ndig):
+        mats[j, :, :nb] = cos_planes[j][:, :nb]
+        mats[j, :, nb] = cos_planes[j][:, nb]  # Nyquist cos in the DC slot
+        mats[j, :, nb + 1 :] = sin_planes[j][:, 1:nb]
+    mixed_scale = np.full((nb,), sin_scale, np.float32)
+    mixed_scale[0] = cos_scale
+    mask = np.ones((nb,), np.float32)
+    mask[0] = 0.0
+    w_hi = W[:nb].astype(np.float32)
+    w_lo = (W[:nb] - w_hi.astype(np.float64)).astype(np.float32)
+    w_nyq = np.zeros((nb, W.shape[1]), np.float32)
+    w_nyq[0] = W[nb].astype(np.float32)
+    return mats, {
+        "mixed_scale": mixed_scale,
+        "mask": mask,
+        "w_hi": w_hi,
+        "w_lo": w_lo,
+        "w_nyq": w_nyq,
+        "cos_scale": np.float32(cos_scale),
+    }
+
+
+def digit_kernel_matrices(
+    C: np.ndarray,
+    S: np.ndarray,
+    W: np.ndarray,
+    ndig: int = _PDK_M_DIGITS,
+):
+    """Host: base-256 digit planes for the fused double-tier digit kernel,
+    in the combined lane layout of :func:`_combined_layout` (no margin
+    bit: |digit| <= 256).  Returns a dict: ``mats (ndig, K, 2*nb)`` and
+    the tail arrays ``mixed_scale``, ``mask``, ``w_hi``, ``w_lo``,
+    ``w_nyq`` and ``cos_scale``."""
+    mats, tail = _combined_layout(C, S, W, ndig, _PDK_BASE, margin=False)
+    return {"mats": mats, **tail}
+
+
 def int8_kernel_matrices(
     C: np.ndarray,
     S: np.ndarray,
@@ -145,30 +217,20 @@ def int8_kernel_matrices(
 ):
     """Host: weight-grouped int8 digit planes for the fused int8 kernel.
 
-    Lane layout ``[cos 0..nb-1 | nyq-cos, sin 1..nb-1]`` with ``nb =
-    dft//2`` (the Nyquist cosine column sits in the sin block's
-    identically-zero DC slot; needs ``dft % 4 == 0``), digitized at base
-    128 with margin bits (|digit| <= 64), and the equal-weight pair groups
-    stacked row-wise: group ``s = i + j`` multiplies the concatenated x
-    planes ``[x_i ...]`` against the row stack of the matching M planes in
-    ONE int8 dot with exact int32 accumulation.  Returns ``gmats (sum_g
-    m_g*K, 2*nb) int8``, the group schedule ``offsets`` (``(s,
-    x_plane_ids, row_offset, row_span)`` tuples, ascending weight), and
-    the tail arrays ``mixed_scale``, ``mask``, ``w_hi``, ``w_lo``,
-    ``w_nyq`` and ``cos_scale``.
+    The combined lane layout of :func:`_combined_layout` (needs ``dft % 4
+    == 0`` for the kernel), digitized at base 128 with margin bits
+    (|digit| <= 64), and the equal-weight pair groups stacked row-wise:
+    group ``s = i + j`` multiplies the concatenated x planes ``[x_i ...]``
+    against the row stack of the matching M planes in ONE int8 dot with
+    exact int32 accumulation.  Returns ``gmats (sum_g m_g*K, 2*nb) int8``,
+    the group schedule ``offsets`` (``(s, x_plane_ids, row_offset,
+    row_span)`` tuples, ascending weight), and the tail arrays
+    ``mixed_scale``, ``mask``, ``w_hi``, ``w_lo``, ``w_nyq`` and
+    ``cos_scale``.
     """
-    K, half = C.shape
-    if half % 2 != 1:
-        raise ValueError("even DFT sizes only (half = dft//2 + 1)")
-    nb = half - 1
+    K = C.shape[0]
     n_x, n_m = _I8_X_DIGITS, _I8_M_DIGITS
-    cos_planes, cos_scale = digitize_matrix(C, n_m, _I8_BASE, margin=True)
-    sin_planes, sin_scale = digitize_matrix(S, n_m, _I8_BASE, margin=True)
-    mats = np.zeros((n_m, K, 2 * nb), np.float32)
-    for j in range(n_m):
-        mats[j, :, :nb] = cos_planes[j][:, :nb]
-        mats[j, :, nb] = cos_planes[j][:, nb]  # Nyquist cos in the DC slot
-        mats[j, :, nb + 1 :] = sin_planes[j][:, 1:nb]
+    mats, tail = _combined_layout(C, S, W, n_m, _I8_BASE, margin=True)
     groups = []
     for s in range(n_x + n_m - 2, -1, -1):  # ascending weight
         if s > cutoff:
@@ -188,24 +250,7 @@ def int8_kernel_matrices(
     for s, mem in groups:
         offsets.append((s, tuple(i for i, _ in mem), off, len(mem) * K))
         off += len(mem) * K
-    mixed_scale = np.full((nb,), sin_scale, np.float32)
-    mixed_scale[0] = cos_scale
-    mask = np.ones((nb,), np.float32)
-    mask[0] = 0.0
-    w_hi = W[:nb].astype(np.float32)
-    w_lo = (W[:nb] - w_hi.astype(np.float64)).astype(np.float32)
-    w_nyq = np.zeros((nb, W.shape[1]), np.float32)
-    w_nyq[0] = W[nb].astype(np.float32)
-    return {
-        "gmats": gmats,
-        "offsets": tuple(offsets),
-        "mixed_scale": mixed_scale,
-        "mask": mask,
-        "w_hi": w_hi,
-        "w_lo": w_lo,
-        "w_nyq": w_nyq,
-        "cos_scale": np.float32(cos_scale),
-    }
+    return {"gmats": gmats, "offsets": tuple(offsets), **tail}
 
 
 def fold_bank_to_weights(bank, dft_size: int, use_power: bool) -> np.ndarray:

@@ -10,6 +10,10 @@ The counterpart of :mod:`speech_tpu.ops.pallas_stft`:
   (``_frames_kernel``): the same fused tail on materialised frames.
 - :func:`stft_feats_int8` replaces ``stft_feats_pallas_int8``
   (``_int8_rows_kernel``): the exact digit tiers 'double' and 'accurate'.
+- :func:`stft_feats_double` replaces ``stft_feats_pallas_double``
+  (``_double_rows_kernel``): the base-256 digit kernel, one dot per digit
+  pair (``csrc/double_kernels.cu``).  No computer route runs it, as in the
+  JAX package; it is public API on the ``pdk_*`` params.
 
 Every wrapper casts its inputs as the JAX function does, checks device,
 dtype, shape and contiguity, and then runs its plain version for CPU
@@ -30,11 +34,25 @@ import torch
 
 from . import _build
 from .framing import frame_padded
-from .stft import floor_log, frame_energy, ieee_float32, _I8_BASE, _I8_X_DIGITS
+from .stft import (
+    _I8_BASE,
+    _I8_X_DIGITS,
+    _PDK_BASE,
+    _PDK_CUTOFF,
+    _PDK_X_DIGITS,
+    digit_pair_schedule,
+    floor_log,
+    frame_energy,
+    ieee_float32,
+    stft_feats_from_frames,
+)
 
 __all__ = [
     "launch_counts",
+    "padded_need",
     "reset_launch_counts",
+    "stft_feats_double",
+    "stft_feats_double_plain",
     "stft_feats_frames",
     "stft_feats_frames_plain",
     "stft_feats_int8",
@@ -96,26 +114,65 @@ _SIGNATURES = {
         ctypes.c_float,  # log_floor
         ctypes.c_void_p,  # stream
     ],
+    "stk_double_feats": [
+        ctypes.c_void_p,  # x
+        ctypes.c_longlong,  # batch
+        ctypes.c_longlong,  # row_stride
+        ctypes.c_longlong,  # n_valid
+        ctypes.c_int,  # frame_shift
+        ctypes.c_int,  # num_frames
+        ctypes.c_int,  # K
+        ctypes.c_int,  # nb
+        ctypes.c_int,  # C
+        ctypes.c_void_p,  # mats
+        ctypes.c_int,  # n_m
+        ctypes.c_int,  # n_pairs
+        _c_int_p,  # pair_i
+        _c_int_p,  # pair_j
+        ctypes.c_float,  # cos_scale
+        ctypes.c_void_p,  # mixed_scale
+        ctypes.c_void_p,  # mask
+        ctypes.c_void_p,  # w_hi
+        ctypes.c_void_p,  # w_lo
+        ctypes.c_void_p,  # w_nyq
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # use_log
+        ctypes.c_int,  # use_power
+        ctypes.c_int,  # energy
+        ctypes.c_float,  # log_floor
+        ctypes.c_void_p,  # stream
+    ],
+}
+# launcher -> the source (csrc/<stem>.cu) whose library exports it, beside
+# that library's own stk_error_string
+_LIBRARIES = {
+    "stk_float_feats": "stft_kernels",
+    "stk_int8_feats": "stft_kernels",
+    "stk_double_feats": "double_kernels",
 }
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load_kernels()["stft_kernels"]
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.stk_error_string.argtypes = [ctypes.c_int]
-    lib.stk_error_string.restype = ctypes.c_char_p
-    return lib
+def _launcher(name: str):
+    """``(launch, error_string)`` for the C launcher ``name``, with its
+    ctypes signature set."""
+    lib = _build.load_kernels()[_LIBRARIES[name]]
+    fn = getattr(lib, name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    err = lib.stk_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
 
 
-def _raise_on(lib, rc: int, name: str):
+def _launch(name: str, wrapper: str, *args):
+    """Call the C launcher ``name``; raise if it reports an error."""
+    fn, err = _launcher(name)
+    rc = fn(*args)
     if rc != 0:
         raise RuntimeError(
-            f"{name} launch failed ({rc}): "
-            + lib.stk_error_string(rc).decode(errors="replace")
+            f"{wrapper} launch failed ({rc}): " + err(rc).decode(errors="replace")
         )
 
 
@@ -352,15 +409,14 @@ def _launch_float(
     )
     if out.numel() == 0:
         return out
-    lib = _lib()
     with torch.cuda.device(x.device):
-        rc = lib.stk_float_feats(
+        _launch(
+            "stk_float_feats", counted.__name__,
             x.data_ptr(), batch, row_stride, n_valid, frame_stride, num_frames,
             frame_length, half, weights.shape[1], cos.data_ptr(), sin.data_ptr(),
             weights.data_ptr(), out.data_ptr(), int(use_log), int(use_power),
             int(include_energy), float(log_floor), _stream(x),
         )
-    _raise_on(lib, rc, counted.__name__)
     counted.launches += 1
     return out
 
@@ -368,23 +424,24 @@ def _launch_float(
 # --- B2: the int8 digit tiers --------------------------------------------------
 
 
-def _int8_tail(acc, scale, params, *, use_power: bool):
-    """Digit-tier spectrum -> filter features: rescale, the power
-    spectrum with the Nyquist value in the sin block's DC slot, the
-    hi/lo-split weights and the rank-1 Nyquist term."""
-    mask = params["i8k_mask"]
+def _digit_tail(acc, scale, params, prefix: str, *, use_power: bool):
+    """Digit-kernel spectrum -> filter features on the ``prefix`` layout
+    ('i8k_' or 'pdk_'): rescale, the power spectrum with the Nyquist value
+    in the sin block's DC slot, the hi/lo-split weights and the rank-1
+    Nyquist term."""
+    mask = params[prefix + "mask"]
     nb = mask.shape[0]
-    re = acc[..., :nb] * (scale * params["i8k_cos_scale"])
-    mixed = acc[..., nb:] * (scale * params["i8k_mixed_scale"])
+    re = acc[..., :nb] * (scale * params[prefix + "cos_scale"])
+    mixed = acc[..., nb:] * (scale * params[prefix + "mixed_scale"])
     im = mixed * mask
     power = re * re + im * im
     spec = power if use_power else torch.sqrt(power)
     nyq = mixed - im
     nyq_spec = nyq * nyq if use_power else torch.abs(nyq)
     return (
-        torch.matmul(spec, params["i8k_w_hi"])
-        + torch.matmul(spec, params["i8k_w_lo"])
-        + nyq_spec[..., 0:1] * params["i8k_w_nyq"][0:1]
+        torch.matmul(spec, params[prefix + "w_hi"])
+        + torch.matmul(spec, params[prefix + "w_lo"])
+        + nyq_spec[..., 0:1] * params[prefix + "w_nyq"][0:1]
     )
 
 
@@ -428,7 +485,7 @@ def stft_feats_int8_plain(
         term = t_hi.to(torch.float32) * w + t_lo.to(torch.float32) * w
         acc = term if acc is None else acc + term
     with ieee_float32():
-        feats = _int8_tail(acc, scale, params, use_power=use_power)
+        feats = _digit_tail(acc, scale, params, "i8k_", use_power=use_power)
     if use_log:
         feats = floor_log(feats, log_floor)
     if include_energy:
@@ -557,9 +614,9 @@ def stft_feats_int8(
     g4, (n_groups, members, xs, row4, svals) = _packed_groups(
         gmats, params["i8k_offsets"], frame_length
     )
-    lib = _lib()
     with torch.cuda.device(padded.device):
-        rc = lib.stk_int8_feats(
+        _launch(
+            "stk_int8_feats", "stft_feats_int8",
             padded.data_ptr(), padded.shape[0], padded.shape[1], padded.shape[1],
             frame_shift, num_frames, frame_length, nb, n_filts, g4.data_ptr(),
             n_groups, members, xs, row4, svals,
@@ -568,12 +625,190 @@ def stft_feats_int8(
             tail["w_nyq"].data_ptr(), out.data_ptr(), int(use_log), int(use_power),
             int(include_energy), float(log_floor), _stream(padded),
         )
-    _raise_on(lib, rc, "stft_feats_int8")
     stft_feats_int8.launches += 1
     return out
 
 
-KERNELS = (stft_feats_rows, stft_feats_frames, stft_feats_int8)
+# --- B4: the base-256 digit kernel -------------------------------------------
+
+
+def padded_need(
+    num_frames: int,
+    frame_length: int,
+    frame_shift: int,
+    block_frames: int,
+) -> int:
+    """The padded sample count the JAX package's fused kernels' rows layout
+    needs (``speech_tpu/ops/pallas_stft.py:padded_need``): callers that pad
+    their own buffers to it hand both packages the same rows.  The CUDA
+    kernels bound their reads by the row length and need no such padding.
+    """
+    q_full, rem = divmod(frame_length, frame_shift)
+    q_rows = q_full + (1 if rem else 0)
+    blocks = -(-num_frames // block_frames)
+    seg_rows = -(-(block_frames + q_rows) // 8) * 8
+    return (blocks * block_frames + (seg_rows - block_frames)) * frame_shift
+
+
+def _double_pairs(params, n_x: Optional[int], cutoff: Optional[int]):
+    """The kept ``(i, j)`` digit pairs, in the order their terms add."""
+    n_x = _PDK_X_DIGITS if n_x is None else n_x
+    cutoff = _PDK_CUTOFF if cutoff is None else cutoff
+    return digit_pair_schedule(n_x, params["pdk_mats"].shape[0], cutoff)
+
+
+def stft_feats_double_plain(
+    padded,
+    params,
+    *,
+    num_frames: int,
+    frame_length: int,
+    frame_shift: int,
+    dft_size: int,
+    use_log: bool,
+    use_power: bool,
+    include_energy: bool,
+    log_floor: float,
+    n_x: Optional[int] = None,
+    cutoff: Optional[int] = None,
+):
+    """Plain version of :func:`stft_feats_double`, step by step.  Each
+    pair dot is an IEEE float32 matmul of integer digits: products below
+    2^15 and sums below 2^24 are exact in any order, so it gives the
+    kernel's integers."""
+    frames = frame_padded(
+        padded.to(torch.float32), num_frames, frame_length, frame_shift
+    )
+    m = torch.clamp_min(torch.amax(torch.abs(frames), dim=-1, keepdim=True), 1e-30)
+    bits = m.contiguous().view(torch.int32)
+    scale = (((bits >> 23) + 2) << 23).view(torch.float32)
+    v = frames * (1.0 / scale)
+    pairs = _double_pairs(params, n_x, cutoff)
+    planes = []
+    for _ in range(max(i for i, _ in pairs) + 1):
+        d = torch.round(v * _PDK_BASE)  # half to even, as jnp.round
+        v = v * _PDK_BASE - d
+        planes.append(d)
+    mats = params["pdk_mats"]
+    acc = None
+    with ieee_float32():
+        for i, j in pairs:  # ascending weight
+            term = torch.matmul(planes[i], mats[j]) * _PDK_BASE ** -(i + j + 2)
+            acc = term if acc is None else acc + term
+        feats = _digit_tail(acc, scale, params, "pdk_", use_power=use_power)
+    if use_log:
+        feats = floor_log(feats, log_floor)
+    if include_energy:
+        energy = frame_energy(
+            frames, use_log=use_log, use_power=use_power, log_floor=log_floor
+        )
+        feats = torch.cat([energy[..., None], feats], dim=-1)
+    return feats
+
+
+def stft_feats_double(
+    padded,
+    params,
+    *,
+    num_frames: int,
+    frame_length: int,
+    frame_shift: int,
+    dft_size: int,
+    use_log: bool,
+    use_power: bool,
+    include_energy: bool,
+    log_floor: float,
+    n_x: Optional[int] = None,
+    cutoff: Optional[int] = None,
+):
+    """Fused base-256 digit-tier features for padded signals ``(batch,
+    padded_len)`` -> ``(batch, num_frames, num_coeffs)`` float32.
+
+    The default plane configuration is the exact 'double' tier (4
+    x-planes, 13 pair dots); ``n_x``/``cutoff`` select reduced-pair
+    variants ('accurate' passes ``(4, 3)``: 10 dots).  Like the JAX op it
+    runs framing plus the plain digit path
+    (``stft_feats_from_frames(..., precision="double")``) where the params
+    carry no kernel layout (``pdk_mats``) or the frame is too long for
+    exact base-256 sums (``K * 256^2 / 2 > 2^24``, i.e. K > 512).
+
+    Replaces ``speech_tpu/ops/pallas_stft.py:stft_feats_pallas_double``
+    (``_double_rows_kernel``).  Bound on an H100: the pair dots, ``2*F*K*2nb``
+    per pair, against the dense bf16 tensor-core rate (the digits are
+    exact in bf16), plus the fp32 tail.  Design: see
+    ``csrc/double_kernels.cu``; the dots run as fp32 FMAs on the CUDA
+    cores, an SGEMM-like tiling whose x digits are recomputed from the
+    signal per tile, so frames and digit planes never reach device memory.
+    """
+    padded = padded.to(torch.float32)
+    if padded.dim() != 2:
+        raise ValueError(f"padded must be (batch, samples), got {tuple(padded.shape)}")
+    k_exact = frame_length * int(_PDK_BASE) ** 2 // 2 <= 1 << 24
+    if "pdk_mats" not in params or not k_exact:
+        frames = frame_padded(padded, num_frames, frame_length, frame_shift)
+        return stft_feats_from_frames(
+            frames,
+            params,
+            dft_size=dft_size,
+            use_log=use_log,
+            use_power=use_power,
+            include_energy=include_energy,
+            log_floor=log_floor,
+            fft_mode="matmul",
+            precision="double",
+        )
+    nb = params["pdk_mask"].shape[0]
+    if nb != dft_size // 2:
+        raise ValueError(f"digit layout has nb={nb}, dft_size is {dft_size}")
+    spec = dict(
+        num_frames=num_frames,
+        frame_length=frame_length,
+        frame_shift=frame_shift,
+        dft_size=dft_size,
+        use_log=use_log,
+        use_power=use_power,
+        include_energy=include_energy,
+        log_floor=log_floor,
+        n_x=n_x,
+        cutoff=cutoff,
+    )
+    if padded.device.type == "cpu":
+        return stft_feats_double_plain(padded, params, **spec)
+    mats = params["pdk_mats"]
+    if mats.dtype != torch.float32 or mats.shape[1:] != (frame_length, 2 * nb):
+        raise ValueError(
+            f"pdk_mats must be float32 (n_m, {frame_length}, {2 * nb}), got "
+            f"{mats.dtype} {tuple(mats.shape)}"
+        )
+    tail = {k: params["pdk_" + k] for k in ("mixed_scale", "mask", "w_hi", "w_lo", "w_nyq")}
+    _check_cuda(padded, padded=padded, pdk_mats=mats, **tail)
+    n_filts = tail["w_hi"].shape[1]
+    out = torch.empty(
+        (padded.shape[0], num_frames, n_filts + int(include_energy)),
+        dtype=torch.float32,
+        device=padded.device,
+    )
+    if out.numel() == 0:
+        return out
+    pairs = _double_pairs(params, n_x, cutoff)
+    pair_i = (ctypes.c_int * len(pairs))(*(i for i, _ in pairs))
+    pair_j = (ctypes.c_int * len(pairs))(*(j for _, j in pairs))
+    with torch.cuda.device(padded.device):
+        _launch(
+            "stk_double_feats", "stft_feats_double",
+            padded.data_ptr(), padded.shape[0], padded.shape[1], padded.shape[1],
+            frame_shift, num_frames, frame_length, nb, n_filts, mats.data_ptr(),
+            mats.shape[0], len(pairs), pair_i, pair_j,
+            float(params["pdk_cos_scale"]), tail["mixed_scale"].data_ptr(),
+            tail["mask"].data_ptr(), tail["w_hi"].data_ptr(), tail["w_lo"].data_ptr(),
+            tail["w_nyq"].data_ptr(), out.data_ptr(), int(use_log), int(use_power),
+            int(include_energy), float(log_floor), _stream(padded),
+        )
+    stft_feats_double.launches += 1
+    return out
+
+
+KERNELS = (stft_feats_rows, stft_feats_frames, stft_feats_int8, stft_feats_double)
 for _fn in KERNELS:
     _fn.launches = 0
 

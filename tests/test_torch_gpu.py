@@ -13,6 +13,7 @@ import torch
 
 from speech_tpu_torch.compute import STFTFrameComputer
 from speech_tpu_torch.ops import framing as TF
+from speech_tpu_torch.ops import stft as TS
 from speech_tpu_torch.ops import stft_kernels as K
 
 BANK = {"name": "fbank", "num_filts": 40, "sampling_rate": 16000}
@@ -99,6 +100,51 @@ def test_int8_kernel_matches_plain(shape, precision, include_energy, use_power, 
         K.stft_feats_int8_plain(padded, tc.params, **kw),
         TOL_INT8, use_log,
     )
+
+
+# (n_x, cutoff) of the base-256 digit kernel's tiers: 'double' the
+# defaults (4, 4), 13 pairs; 'accurate' (4, 3), 10 pairs
+DOUBLE_TIERS = {"double": {}, "accurate": dict(n_x=4, cutoff=3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", sorted(DOUBLE_TIERS))
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("include_energy,use_power,use_log", COMBOS, ids=COMBO_IDS)
+def test_double_kernel_matches_plain(shape, precision, include_energy, use_power, use_log):
+    dev = _device()
+    tc, padded, mf = _setup(dev, shape, 83, use_power=use_power, precision=precision)
+    kw = dict(
+        num_frames=mf, frame_length=tc.frame_length, frame_shift=tc.frame_shift,
+        dft_size=tc.dft_size, use_log=use_log, use_power=use_power,
+        include_energy=include_energy, log_floor=1e-5, **DOUBLE_TIERS[precision],
+    )
+    K.reset_launch_counts()
+    got = K.stft_feats_double(padded, tc.params, **kw)
+    assert K.launch_counts()["stft_feats_double"] == 1
+    _close(got, K.stft_feats_double_plain(padded, tc.params, **kw), TOL_INT8, use_log)
+
+
+@pytest.mark.cuda
+def test_double_long_frames_take_digit_path_on_gpu():
+    """40 ms frames (640 samples > 512): no exact base-256 sums, so the op
+    runs the plain digit path on the card and launches nothing."""
+    dev = _device()
+    tc, padded, mf = _setup(dev, (40, 10, True), 84, precision="double")
+    kw = dict(
+        num_frames=mf, frame_length=tc.frame_length, frame_shift=tc.frame_shift,
+        dft_size=tc.dft_size, use_log=True, use_power=False, include_energy=True,
+        log_floor=1e-5,
+    )
+    K.reset_launch_counts()
+    got = K.stft_feats_double(padded, tc.params, **kw)
+    assert K.launch_counts()["stft_feats_double"] == 0
+    frames = TF.frame_padded(padded, mf, tc.frame_length, tc.frame_shift)
+    want = TS.stft_feats_from_frames(
+        frames, tc.params, dft_size=tc.dft_size, use_log=True, use_power=False,
+        include_energy=True, log_floor=1e-5, fft_mode="matmul", precision="double",
+    )
+    _close(got, want, TOL_INT8, True)
 
 
 @pytest.mark.cuda

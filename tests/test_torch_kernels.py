@@ -184,10 +184,15 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
         K.stft_feats_frames(frames, tc.params, **spec),
         K.stft_feats_frames_plain(frames, tc.params, **spec),
     )
+    assert torch.equal(
+        K.stft_feats_double(x, tc.params, dft_size=jc.dft_size, **kw),
+        K.stft_feats_double_plain(x, tc.params, dft_size=jc.dft_size, **kw),
+    )
     assert K.launch_counts() == {
         "stft_feats_rows": 0,
         "stft_feats_frames": 0,
         "stft_feats_int8": 0,
+        "stft_feats_double": 0,
     }
 
 
