@@ -57,7 +57,8 @@ TOL_F64 = 1e-5  # 'double' vs float64 on speech (tests/test_pallas.py:250)
 # tier's 1e-4, then float32 standardization scales each coefficient by
 # 1/std (std >= ~0.1 on the deltas)
 TOL_CHAIN = 1e-3
-SOURCE = "speech_tpu_torch/csrc/stft_kernels.cu"  # B1-B3
+SOURCE = "speech_tpu_torch/csrc/stft_kernels.cu"  # B1, B3
+INT8_SOURCE = "speech_tpu_torch/csrc/int8_kernels.cu"  # B2
 DOUBLE_SOURCE = "speech_tpu_torch/csrc/double_kernels.cu"  # B4
 COMPUTE_PATH = ("stft_feats_rows", "stft_feats_frames", "stft_feats_int8")
 
@@ -89,6 +90,14 @@ def cuda_ms(fn, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound_ms(entry):
+    """The least time for an entry's work: the larger of its operations
+    over their peak rates and its bytes over the memory rate; and which."""
+    t_ops = sum(ops / peak for ops, peak in entry["ops"]) * 1e3
+    t_bytes = entry["nbytes"] / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def read_wav(path):
@@ -189,21 +198,25 @@ def main():
         print(f"stft_feats_int8 [{precision}] vs plain: max abs {err:.3e}", flush=True)
         check(err <= TOL_INT8, f"stft_feats_int8 [{precision}] disagrees with its plain version: {err}")
         int8_ms[precision] = cuda_ms(lambda: K.stft_feats_int8(padded, p, **i8_kw))
-        print(f"stft_feats_int8 [{precision}]: {int8_ms[precision]:.3f} ms", flush=True)
+        # the tier's own pairs: 19 for 'double', 15 for 'accurate'
+        n_pairs = sum(len(xs) for _, xs, _, _ in p["i8k_offsets"])
+        nb = p["i8k_mask"].shape[0]
+        tail = [p["i8k_" + k] for k in ("gmats", "mixed_scale", "mask", "w_hi", "w_lo", "w_nyq")]
+        entry = dict(
+            replaces="speech_tpu/ops/pallas_stft.py:703 stft_feats_pallas_int8 (_int8_rows_kernel :573)",
+            err=err, tol=TOL_INT8, ms=int8_ms[precision],
+            ops=[
+                (2 * frames_total * fl * 2 * nb * n_pairs, PEAK_INT8_OPS),
+                (2 * frames_total * nb * nf * 2, PEAK_FP32_FLOPS),
+            ],
+            nbytes=bytes_of(padded, got, *tail), source=INT8_SOURCE,
+        )
+        bound, _ = bound_ms(entry)
+        print(f"stft_feats_int8 [{precision}]: {int8_ms[precision]:.3f} ms, {n_pairs} pairs, "
+              f"bound {bound:.3f} ms, {100 * bound / int8_ms[precision]:.1f}% of bound", flush=True)
         if precision == "double":
-            n_pairs = sum(len(xs) for _, xs, _, _ in p["i8k_offsets"])
-            nb = p["i8k_mask"].shape[0]
-            tail = [p["i8k_" + k] for k in ("gmats", "mixed_scale", "mask", "w_hi", "w_lo", "w_nyq")]
-            entries["stft_feats_int8"] = dict(
-                replaces="speech_tpu/ops/pallas_stft.py:703 stft_feats_pallas_int8 (_int8_rows_kernel :573)",
-                err=err, tol=TOL_INT8, ms=int8_ms[precision],
-                plain_ms=cuda_ms(lambda: K.stft_feats_int8_plain(padded, p, **i8_kw), reps=3),
-                ops=[
-                    (2 * frames_total * fl * 2 * nb * n_pairs, PEAK_INT8_OPS),
-                    (2 * frames_total * nb * nf * 2, PEAK_FP32_FLOPS),
-                ],
-                nbytes=bytes_of(padded, got, *tail),
-            )
+            entry["plain_ms"] = cuda_ms(lambda: K.stft_feats_int8_plain(padded, p, **i8_kw), reps=3)
+            entries["stft_feats_int8"] = entry
         del got, want
     for name, e in entries.items():
         print(f"{name} vs plain: max abs {e['err']:.3e} (tol {e['tol']:g}); "
@@ -352,14 +365,12 @@ def main():
     # 8. the kernels line, the card, the device line
     kernels = []
     for name, e in entries.items():
-        t_ops = sum(ops / peak for ops, peak in e["ops"]) * 1e3
-        t_bytes = e["nbytes"] / PEAK_BYTES * 1e3
+        bound, bound_by = bound_ms(e)
         kernels.append({
             "name": name, "route": "cuda", "source": e.get("source", SOURCE),
             "replaces": e["replaces"],
             "launches": launches[name], "max_abs_err": e["err"], "ms": e["ms"],
-            "plain_ms": e["plain_ms"], "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "plain_ms": e["plain_ms"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None,
         })
     print(f"stft_feats_int8 accurate ms: {int8_ms['accurate']:.3f}; "

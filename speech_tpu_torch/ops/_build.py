@@ -3,11 +3,14 @@
 Every ``speech_tpu_torch/csrc/*.cu`` compiles at first use into its own
 shared library with a plain C interface, loaded with :mod:`ctypes`: no
 PyTorch headers, so a build takes seconds.  All sources compile at once,
-one ``nvcc`` each: that is why B4 (``double_kernels.cu``) keeps a source
-of its own beside B1-B3 (``stft_kernels.cu``), and each library exports
-its own ``stk_error_string`` for its own error codes.  Libraries land in ``build/speech_tpu_torch/`` at the
-root of the checkout, named by the hash of their source and flags, so an
-edited source rebuilds and an unchanged one loads as it is.
+one ``nvcc`` each, which is why each kernel family keeps a source of its
+own: ``stft_kernels.cu`` (B1/B3, the fused float kernel),
+``int8_kernels.cu`` (B2, the int8 digit tiers on the tensor cores) and
+``double_kernels.cu`` (B4, the base-256 digit kernel).  Each library
+exports its own ``stk_error_string`` for its own error codes.  Libraries
+land in ``build/speech_tpu_torch/`` at the root of the checkout, named by
+the hash of their source and flags, so an edited source rebuilds and an
+unchanged one loads as it is.
 """
 
 import ctypes

@@ -1,5 +1,5 @@
 """Fused STFT -> features kernels: wrappers around the hand-written CUDA
-kernels of ``csrc/stft_kernels.cu``, each beside its plain PyTorch version.
+kernels of ``csrc/*.cu``, each beside its plain PyTorch version.
 
 The counterpart of :mod:`speech_tpu.ops.pallas_stft`:
 
@@ -9,7 +9,8 @@ The counterpart of :mod:`speech_tpu.ops.pallas_stft`:
 - :func:`stft_feats_frames` replaces ``stft_feats_pallas_from_frames``
   (``_frames_kernel``): the same fused tail on materialised frames.
 - :func:`stft_feats_int8` replaces ``stft_feats_pallas_int8``
-  (``_int8_rows_kernel``): the exact digit tiers 'double' and 'accurate'.
+  (``_int8_rows_kernel``): the exact digit tiers 'double' and 'accurate',
+  on the int8 tensor cores (``csrc/int8_kernels.cu``).
 - :func:`stft_feats_double` replaces ``stft_feats_pallas_double``
   (``_double_rows_kernel``): the base-256 digit kernel, one dot per digit
   pair (``csrc/double_kernels.cu``).  No computer route runs it, as in the
@@ -95,11 +96,11 @@ _SIGNATURES = {
         ctypes.c_int,  # K
         ctypes.c_int,  # nb
         ctypes.c_int,  # C
-        ctypes.c_void_p,  # g4
+        ctypes.c_void_p,  # packed
+        ctypes.c_int,  # steps
         ctypes.c_int,  # n_groups
         _c_int_p,  # members
         _c_int_p,  # xs
-        _c_int_p,  # row4
         _c_int_p,  # s
         ctypes.c_float,  # cos_scale
         ctypes.c_void_p,  # mixed_scale
@@ -107,6 +108,7 @@ _SIGNATURES = {
         ctypes.c_void_p,  # w_hi
         ctypes.c_void_p,  # w_lo
         ctypes.c_void_p,  # w_nyq
+        ctypes.c_void_p,  # spans
         ctypes.c_void_p,  # out
         ctypes.c_int,  # use_log
         ctypes.c_int,  # use_power
@@ -147,7 +149,7 @@ _SIGNATURES = {
 # that library's own stk_error_string
 _LIBRARIES = {
     "stk_float_feats": "stft_kernels",
-    "stk_int8_feats": "stft_kernels",
+    "stk_int8_feats": "int8_kernels",
     "stk_double_feats": "double_kernels",
 }
 
@@ -496,52 +498,95 @@ def stft_feats_int8_plain(
     return feats
 
 
+_I8_STEP_K = 32  # k rows of one int8 tensor-core product
+_I8_STEP_ALIGN = 4  # k-steps a chunk is padded to a multiple of (ring stages)
+_I8_CHUNK_BINS = 64  # bins per column chunk
+
+
 def _pack_groups(gmats, offsets, frame_length: int):
-    """The grouped digit matrices packed for ``__dp4a``: each member block
-    padded to ``K16 = round_up(K, 16)`` rows, four consecutive rows to an
-    int32 (lowest row in the lowest byte), shape ``(rows4, 2*nb)``; plus
-    the group table as ctypes arrays."""
+    """The grouped digit matrices packed for the tensor-core kernel, and
+    the group table.
+
+    Returns ``(packed, steps, (n_groups, members, xs, s))``: ``packed`` is
+    int8 ``(chunks, steps, 16, 2, 8, 16)`` with ``chunks = ceil(nb / 64)``:
+    [chunk][k-step][column group][k half][column in group][k in half], so
+    each k-step is 16 x 2 core matrices (8 columns x 16 k, contiguous) in
+    the K-major layout the tensor cores read from shared memory.  Chunk
+    ``c``'s column ``2i`` is the real (cos) column and ``2i + 1`` the mixed
+    column of bin ``64c + i``, so one thread of the kernel holds a bin's
+    pair; columns past ``nb`` are zero.  K-step ``u`` holds rows ``[32kk,
+    32kk + 32)`` (``kk = u % nk``, ``nk = ceil(K / 32)``) of member
+    ``u // nk``, members in group order, zero past ``K``; zero k-steps pad
+    ``steps`` to a multiple of 4.  ``members``, ``xs`` (five slots a group)
+    and ``s`` are ctypes arrays in ascending weight order."""
     nb2 = gmats.shape[1]
-    k16 = -(-frame_length // 16) * 16
-    blocks, members, xs_flat, row4, svals = [], [], [], [], []
-    row = 0
+    nb = nb2 // 2
+    kp = -(-frame_length // _I8_STEP_K) * _I8_STEP_K
+    blocks, members, xs_flat, svals = [], [], [], []
     for s, xs, off, span in offsets:
         m = len(xs)
-        blk = gmats[off : off + span].reshape(m, frame_length, nb2)
-        if k16 != frame_length:
-            blk = torch.nn.functional.pad(blk, (0, 0, 0, k16 - frame_length))
-        blk = blk.reshape(m, k16 // 4, 4, nb2).permute(0, 1, 3, 2).contiguous()
-        blocks.append(blk.view(torch.int32).reshape(m * k16 // 4, nb2))
+        blocks.append(gmats[off : off + span].reshape(m, frame_length, nb2))
         members.append(m)
         xs_flat.extend(list(xs) + [0] * (_I8_X_DIGITS - m))
-        row4.append(row)
         svals.append(s)
-        row += m * k16 // 4
+    rows = torch.nn.functional.pad(torch.cat(blocks), (0, 0, 0, kp - frame_length))
+    n_steps = rows.shape[0] * kp // _I8_STEP_K
+    steps = -(-n_steps // _I8_STEP_ALIGN) * _I8_STEP_ALIGN
+    chunks = -(-nb // _I8_CHUNK_BINS)
+    ksteps = rows.reshape(n_steps, _I8_STEP_K, nb2)
+    # (real, mixed) of each bin side by side, bins padded to whole chunks
+    cols = torch.stack([ksteps[..., :nb], ksteps[..., nb:]], dim=-1).reshape(
+        n_steps, _I8_STEP_K, nb2
+    )
+    cols = torch.nn.functional.pad(
+        cols, (0, 2 * (chunks * _I8_CHUNK_BINS - nb), 0, 0, 0, steps - n_steps)
+    )
+    packed = (
+        cols.reshape(steps, 2, 16, chunks, 2 * _I8_CHUNK_BINS // 8, 8)
+        .permute(3, 0, 4, 1, 5, 2)
+        .contiguous()
+    )
 
     def ints(vals):
         return (ctypes.c_int * len(vals))(*vals)
 
-    return torch.cat(blocks), (
-        len(members), ints(members), ints(xs_flat), ints(row4), ints(svals)
-    )
+    return packed, steps, (len(members), ints(members), ints(xs_flat), ints(svals))
+
+
+def _filter_spans(w_hi, w_lo):
+    """``(C, 2)`` int32: each filter's first and one-past-last row with a
+    nonzero ``w_hi`` or ``w_lo`` weight (empty as ``(nb, 0)``).  The
+    kernel's filter sums skip the rows outside, whose terms are exact
+    zeros."""
+    nz = (w_hi != 0) | (w_lo != 0)
+    rows = torch.arange(nz.shape[0], device=nz.device)[:, None]
+    first = torch.where(nz, rows, nz.shape[0]).amin(0)
+    last = torch.where(nz, rows + 1, 0).amax(0)
+    return torch.stack([first, last], dim=1).to(torch.int32).contiguous()
 
 
 _PACKED = {}  # id(gmats) -> (weakref to gmats, key, packed layout)
+_SPANS = {}  # id(w_hi) -> (weakref to w_hi, key, filter spans)
+
+
+def _cached(cache, tensor, key, build):
+    """``build()`` once per ``tensor``: the value is kept in ``cache`` while
+    the tensor lives and ``key`` (its version and what else the value
+    depends on) is unchanged, so a launch only reads it."""
+    slot = id(tensor)
+    hit = cache.get(slot)
+    if hit is not None and hit[0]() is tensor and hit[1] == key:
+        return hit[2]
+    value = build()
+    cache[slot] = (weakref.ref(tensor, lambda r: cache.pop(slot, None)), key, value)
+    return value
 
 
 def _packed_groups(gmats, offsets, frame_length: int):
-    """:func:`_pack_groups`, once per gmats tensor: the layout is kept
-    while the tensor lives and is unchanged (same version, schedule and
-    frame length), so a launch only reads it."""
+    """:func:`_pack_groups`, once per gmats tensor (same version, schedule
+    and frame length)."""
     key = (gmats._version, tuple(offsets), frame_length)
-    hit = _PACKED.get(id(gmats))
-    if hit is not None and hit[0]() is gmats and hit[1] == key:
-        return hit[2]
-    packed = _pack_groups(gmats, offsets, frame_length)
-    slot = id(gmats)
-    ref = weakref.ref(gmats, lambda r: _PACKED.pop(slot, None))
-    _PACKED[slot] = (ref, key, packed)
-    return packed
+    return _cached(_PACKED, gmats, key, lambda: _pack_groups(gmats, offsets, frame_length))
 
 
 def stft_feats_int8(
@@ -564,12 +609,17 @@ def stft_feats_int8(
 
     Replaces ``speech_tpu/ops/pallas_stft.py:stft_feats_pallas_int8``
     (``_int8_rows_kernel``).  Bound on an H100: the int8 products,
-    ``2*F*K*2nb`` per kept digit pair (19 pairs for 'double'), against the
-    1,979 TOP/s int8 tensor-core rate.  Design: one block per (row, tile of
-    frames) digitises its frames into shared memory and runs each
-    equal-weight group as one exact int32 dot with ``__dp4a`` on the CUDA
-    cores, so it runs well above that bound; the exactness (integer sums,
-    the 12-bit split, the ascending fp32 adds) is the point of the tier.
+    ``2*F*K*2nb`` per kept digit pair (19 pairs for 'double', 15 for
+    'accurate'), against the 1,979 TOP/s int8 tensor-core rate.  Design
+    (``csrc/int8_kernels.cu``): one block per (row, 64 frames) digitises
+    its frames once into shared memory and runs each equal-weight group as
+    exact int8 x int8 -> int32 tensor-core products (``wgmma``; ``mma.sync``
+    for the 32- and 16-frame tiles of long frames; past those, 64-frame
+    tiles digitise slab by slab of ``K``, so every ``K`` runs), the grouped matrices
+    streaming through a shared-memory ring in the layout of
+    :func:`_pack_groups`, one 64-bin chunk of columns at a time; the
+    exactness (integer sums, the 12-bit split, the ascending fp32 adds) is
+    the point of the tier.
     """
     padded = padded.to(torch.float32)
     if padded.dim() != 2:
@@ -611,19 +661,24 @@ def stft_feats_int8(
     )
     if out.numel() == 0:
         return out
-    g4, (n_groups, members, xs, row4, svals) = _packed_groups(
+    packed, steps, (n_groups, members, xs, svals) = _packed_groups(
         gmats, params["i8k_offsets"], frame_length
+    )
+    w_hi, w_lo = tail["w_hi"], tail["w_lo"]
+    spans = _cached(
+        _SPANS, w_hi, (w_hi._version, id(w_lo), w_lo._version),
+        lambda: _filter_spans(w_hi, w_lo),
     )
     with torch.cuda.device(padded.device):
         _launch(
             "stk_int8_feats", "stft_feats_int8",
             padded.data_ptr(), padded.shape[0], padded.shape[1], padded.shape[1],
-            frame_shift, num_frames, frame_length, nb, n_filts, g4.data_ptr(),
-            n_groups, members, xs, row4, svals,
+            frame_shift, num_frames, frame_length, nb, n_filts, packed.data_ptr(),
+            steps, n_groups, members, xs, svals,
             float(params["i8k_cos_scale"]), tail["mixed_scale"].data_ptr(),
             tail["mask"].data_ptr(), tail["w_hi"].data_ptr(), tail["w_lo"].data_ptr(),
-            tail["w_nyq"].data_ptr(), out.data_ptr(), int(use_log), int(use_power),
-            int(include_energy), float(log_floor), _stream(padded),
+            tail["w_nyq"].data_ptr(), spans.data_ptr(), out.data_ptr(), int(use_log),
+            int(use_power), int(include_energy), float(log_floor), _stream(padded),
         )
     stft_feats_int8.launches += 1
     return out

@@ -83,23 +83,119 @@ def test_float_kernels_match_plain(shape, include_energy, use_power, use_log):
     )
 
 
+def _int8_rows(kind, n):
+    """Three rows of ``n`` samples: 'noise' is unit noise; 'silence-int16'
+    is full-scale int16 noise (clipped at -32768 and 32767) with a silent
+    stretch of several frames in every row and a wholly silent last row."""
+    rng = np.random.RandomState(81)
+    if kind == "noise":
+        return rng.randn(3, n).astype(np.float32)
+    pcm = np.round(rng.randn(3, n) * 20000).clip(-32768, 32767).astype(np.int16)
+    pcm[:, n // 4 : n // 4 + 2000] = 0
+    pcm[2] = 0
+    return pcm
+
+
+# the int8 kernel also takes K = 392 with dft 392 (nb = 196, so its last
+# 64-bin chunk holds 4 bins) and 50 ms frames (K = 800: 32-frame tiles on
+# mma.sync, as 64 frames of digit planes do not fit in shared memory)
+INT8_SHAPES = SHAPES + [(24.5, 10, False), (50, 10, True)]
+INT8_SHAPE_IDS = SHAPE_IDS + ["dft392", "k800"]
+# (kind, samples): 9000 samples are one partial 64-frame tile a row; 24000
+# are two full tiles and a partial one (150 frames)
+INT8_SIGNALS = [("noise", 9000), ("noise", 24000), ("silence-int16", 24000)]
+INT8_SIGNAL_IDS = ["short", "long", "silence-int16"]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("signal", INT8_SIGNALS, ids=INT8_SIGNAL_IDS)
 @pytest.mark.parametrize("precision", ["double", "accurate"])
-@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=INT8_SHAPE_IDS)
 @pytest.mark.parametrize("include_energy,use_power,use_log", COMBOS, ids=COMBO_IDS)
-def test_int8_kernel_matches_plain(shape, precision, include_energy, use_power, use_log):
+def test_int8_kernel_matches_plain(shape, precision, signal, include_energy, use_power, use_log):
     dev = _device()
-    tc, padded, mf = _setup(dev, shape, 81, use_power=use_power, precision=precision)
+    fl_ms, fs_ms, pow2 = shape
+    kind, n = signal
+    spec = dict(use_log=use_log, use_power=use_power, include_energy=include_energy)
+    tc = STFTFrameComputer(
+        dict(BANK), frame_length_ms=fl_ms, frame_shift_ms=fs_ms,
+        pad_to_nearest_power_of_two=pow2, device=dev, precision=precision, **spec,
+    )
+    rows = _int8_rows(kind, n)
+    x = torch.tensor(rows.astype(np.float32) / (32768.0 if kind != "noise" else 1.0), device=dev)
+    padded = TF.pad_signal_full(x, tc.frame_length, tc._pad_left)
+    mf = TF.frame_count_np(n, tc.frame_length, tc.frame_shift)
     kw = dict(
         num_frames=mf, frame_length=tc.frame_length, frame_shift=tc.frame_shift,
-        dft_size=tc.dft_size, use_log=use_log, use_power=use_power,
-        include_energy=include_energy, log_floor=1e-5,
+        dft_size=tc.dft_size, log_floor=1e-5, **spec,
     )
-    _close(
-        K.stft_feats_int8(padded, tc.params, **kw),
-        K.stft_feats_int8_plain(padded, tc.params, **kw),
-        TOL_INT8, use_log,
+    K.reset_launch_counts()
+    got = K.stft_feats_int8(padded, tc.params, **kw)
+    assert K.launch_counts()["stft_feats_int8"] == 1
+    _close(got, K.stft_feats_int8_plain(padded, tc.params, **kw), TOL_INT8, use_log)
+    if kind == "noise":
+        return
+    # the same int16 rows through the computer: the card against the CPU
+    cpu = STFTFrameComputer(
+        dict(BANK), frame_length_ms=fl_ms, frame_shift_ms=fs_ms,
+        pad_to_nearest_power_of_two=pow2, device="cpu", precision=precision, **spec,
     )
+    lens = np.array([n, n - 5000, n])
+    got, got_n = tc.compute_batch(rows, lens)
+    want, want_n = cpu.compute_batch(rows, lens)
+    assert torch.equal(got_n.cpu(), want_n)
+    for row, m in enumerate(want_n.tolist()):
+        _close(got[row, :m].cpu(), want[row, :m], TOL_INT8, use_log)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["double", "accurate"])
+@pytest.mark.parametrize(
+    "shape",
+    [(125, 10, True), (150, 10, True), (300, 10, True), (25, 25, True)],
+    ids=["k2000", "k2400", "k4800", "shift400"],
+)
+def test_int8_kernel_long_frames_and_shifts(shape, precision):
+    """125 ms frames (K = 2000, dft 2048): only 16-frame tiles fit; 150 and
+    300 ms frames (K = 2400 and 4800): not even those, so 64-frame tiles
+    hold the digit planes in slabs of K; a 25 ms shift: a block's samples
+    do not fit in shared memory, so the kernel reads them from device
+    memory."""
+    dev = _device()
+    tc, padded, mf = _setup(dev, shape, 85, precision=precision)
+    kw = dict(
+        num_frames=mf, frame_length=tc.frame_length, frame_shift=tc.frame_shift,
+        dft_size=tc.dft_size, use_log=True, use_power=False, include_energy=True,
+        log_floor=1e-5,
+    )
+    K.reset_launch_counts()
+    got = K.stft_feats_int8(padded, tc.params, **kw)
+    assert K.launch_counts()["stft_feats_int8"] == 1
+    _close(got, K.stft_feats_int8_plain(padded, tc.params, **kw), TOL_INT8, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "precision,frame_length_ms",
+    [("double", 25), ("accurate", 25), ("double", 150)],
+    ids=["double", "accurate", "double-k2400"],
+)
+def test_int8_kernel_repeats_bitwise(precision, frame_length_ms):
+    """No atomics and a fixed order of every sum: 100 calls on one ragged
+    int16 batch give the same bits, within TOL_INT8 of the CPU (150 ms
+    frames: the planes in slabs of K)."""
+    dev = _device()
+    rows = _int8_rows("silence-int16", 24000)
+    lens = np.array([24000, 19000, 24000])
+    kw = dict(frame_length_ms=frame_length_ms, frame_shift_ms=10, precision=precision,
+              use_log=False, use_power=False)
+    gpu = STFTFrameComputer(dict(BANK), device=dev, **kw)
+    want, want_n = STFTFrameComputer(dict(BANK), device="cpu", **kw).compute_batch(rows, lens)
+    first, _ = gpu.compute_batch(rows, lens)
+    for row, m in enumerate(want_n.tolist()):
+        _close(first[row, :m].cpu(), want[row, :m], TOL_INT8, False)
+    differ = sum(not torch.equal(gpu.compute_batch(rows, lens)[0], first) for _ in range(100))
+    assert differ == 0, f"{differ} of 100 calls differ from the first"
 
 
 # (n_x, cutoff) of the base-256 digit kernel's tiers: 'double' the

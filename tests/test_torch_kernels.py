@@ -210,27 +210,65 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         K.stft_feats_int8(torch.zeros(2, 1000), tc.params, dft_size=512, **rows_kw)
 
 
-def test_pack_groups_layout_decodes_to_gmats():
-    """The dp4a layout the int8 kernel reads: four k-rows to an int32,
-    lowest row in the lowest byte, member blocks padded to K16 rows."""
-    _, tc = _pair(frame_length_ms=24.375, precision="double")  # K = 390
-    params = tc.params
-    gmats, offsets = params["i8k_gmats"], params["i8k_offsets"]
-    K_ = tc.frame_length
-    assert K_ == 390
-    g4, (n_groups, members, xs, row4, svals) = K._pack_groups(gmats, offsets, K_)
-    assert g4.dtype == torch.int32 and n_groups == len(offsets)
-    k16 = 400
-    as_bytes = g4.numpy().view(np.int8).reshape(g4.shape[0], g4.shape[1], 4)
-    for g, (s, xids, off, span) in enumerate(offsets):
+@pytest.mark.parametrize(
+    "kw,K_,dft",
+    [
+        (dict(frame_length_ms=24.375), 390, 512),  # rows padded to 416
+        # nb = 196: the last 64-bin chunk holds 4 bins, the rest zero
+        (dict(frame_length_ms=24.5, pad_to_nearest_power_of_two=False), 392, 392),
+        (dict(frame_length_ms=24, pad_to_nearest_power_of_two=False), 384, 384),  # 3 whole chunks
+        (dict(frame_length_ms=50), 800, 1024),  # 25 k-steps a member
+    ],
+    ids=["k390", "dft392", "dft384", "k800"],
+)
+def test_pack_groups_layout_decodes_to_gmats(kw, K_, dft):
+    """The tensor-core layout the int8 kernel reads: (chunks, steps, 16, 2,
+    8, 16) core matrices, a chunk's columns the (real, mixed) pairs of 64
+    bins, k-steps of 32 rows through the members in group order, zero past
+    K, past nb and in the padding k-steps."""
+    _, tc = _pair(precision="double", **kw)
+    gmats, offsets = tc.params["i8k_gmats"], tc.params["i8k_offsets"]
+    assert (tc.frame_length, tc.dft_size) == (K_, dft)
+    nb = dft // 2
+    packed, steps, (n_groups, members, xs, svals) = K._pack_groups(gmats, offsets, K_)
+    chunks, nk = -(-nb // 64), -(-K_ // 32)
+    n_members = sum(len(xids) for _, xids, _, _ in offsets)
+    assert steps == -(-n_members * nk // 4) * 4
+    assert packed.dtype == torch.int8
+    assert tuple(packed.shape) == (chunks, steps, 16, 2, 8, 16)
+    # the group table: ascending weight, x planes in five slots a group
+    assert n_groups == len(offsets)
+    for g, (s, xids, _, _) in enumerate(offsets):
         assert svals[g] == s and members[g] == len(xids)
         assert list(xs[5 * g : 5 * g + len(xids)]) == list(xids)
-        for m in range(len(xids)):
-            r0 = row4[g] + m * k16 // 4
-            block = as_bytes[r0 : r0 + k16 // 4].transpose(0, 2, 1).reshape(k16, -1)
-            want = gmats[off + m * K_ : off + (m + 1) * K_].numpy()
-            assert np.array_equal(block[:K_], want)
-            assert not block[K_:].any()
+    # decode: rows (steps * 32) by interleaved columns (chunks * 128)
+    # [chunk, step, column group, k half, column, k] -> [step, k half, k,
+    # chunk, column group, column]
+    dense = packed.numpy().transpose(1, 3, 5, 0, 2, 4).reshape(steps * 32, chunks * 128)
+    pairs = dense.reshape(steps * 32, chunks * 64, 2)
+    real, mixed = pairs[..., 0], pairs[..., 1]
+    assert not real[:, nb:].any() and not mixed[:, nb:].any()
+    assert not dense[n_members * nk * 32 :].any()  # the padding k-steps
+    rows = np.concatenate([real[:, :nb], mixed[:, :nb]], axis=1)
+    rows = rows[: n_members * nk * 32].reshape(n_members, nk * 32, 2 * nb)
+    assert not rows[:, K_:].any()
+    want = gmats.numpy().reshape(n_members, K_, 2 * nb)
+    assert np.array_equal(rows[:, :K_], want)
+
+
+def test_filter_spans_bound_the_nonzero_weights():
+    """Each filter's span covers exactly its rows with a nonzero w_hi or
+    w_lo weight, so the kernel's filter sums skip only exact zeros."""
+    _, tc = _pair(precision="double")
+    w_hi, w_lo = tc.params["i8k_w_hi"], tc.params["i8k_w_lo"]
+    spans = K._filter_spans(w_hi, w_lo)
+    assert spans.dtype == torch.int32 and tuple(spans.shape) == (w_hi.shape[1], 2)
+    nz = ((w_hi != 0) | (w_lo != 0)).numpy()
+    for c, (first, last) in enumerate(spans.tolist()):
+        rows = np.flatnonzero(nz[:, c])
+        assert (first, last) == (rows[0], rows[-1] + 1)
+    empty = K._filter_spans(torch.zeros(5, 2), torch.zeros(5, 2))
+    assert empty.tolist() == [[5, 0], [5, 0]]
 
 
 def test_packed_groups_built_once_per_gmats():
@@ -242,7 +280,7 @@ def test_packed_groups_built_once_per_gmats():
     assert K._packed_groups(gmats, offsets, tc.frame_length) is first
     gmats.add_(0)  # bumps the version: the packing is stale
     again = K._packed_groups(gmats, offsets, tc.frame_length)
-    assert again is not first and torch.equal(again[0], first[0])
+    assert again is not first and torch.equal(again[0], first[0]) and again[1] == first[1]
     slot = id(gmats)
     del tc, gmats
     assert slot not in K._PACKED
