@@ -1,20 +1,61 @@
-// Fused float STFT -> filter-bank feature kernel for Hopper (sm_90a), with
-// a plain C launcher (stk_float_feats) that the Python wrappers
-// stft_feats_rows and stft_feats_frames in
+// Fused float STFT -> filter-bank feature kernel for Hopper (sm_90a) on the
+// TF32 tensor cores, with a plain C launcher (stk_float_feats) that the
+// Python wrappers stft_feats_rows and stft_feats_frames in
 // speech_tpu_torch/ops/stft_kernels.py load through ctypes.
 //
-// float_feats_kernel replaces speech_tpu/ops/pallas_stft.py
-// stft_feats_pallas (_rows_kernel) and stft_feats_pallas_from_frames
-// (_frames_kernel).  One block per (signal row, tile of T frames).  The
-// block stages the tile's samples in shared memory (frame t is samples
-// [t*stride, t*stride + K) of the tile), so frames never reach device
-// memory; stride is the frame shift for padded signal rows and K for
-// materialised frames.  Each thread owns DFT bins and accumulates re/im for
-// the whole tile in IEEE fp32 FMA against the window-folded cos/sin matrices
-// (read through L1/L2), writes |X|^2 (or |X|) to shared memory, and the
-// block then contracts the tile's spectrum with the folded filter weights,
-// applies the log floor and writes the energy column.  The int8 digit tiers
-// have a source of their own, int8_kernels.cu.
+// Replaces speech_tpu/ops/pallas_stft.py stft_feats_pallas (_rows_kernel +
+// _feats_from_pieces) and stft_feats_pallas_from_frames (_frames_kernel):
+// re/im of each frame against the window-folded DFT matrices, |X|^2 (its
+// root for magnitude), the folded filter weights, log floor and energy.  One
+// kernel serves both routes: frame t of a block is samples [t*stride, t*stride
+// + K) of its row, stride the frame shift for padded signal rows and K for
+// materialised frames.
+//
+// Precision: the DFT products run as TF32 tensor-core products with fp32
+// accumulation (wgmma .f32.tf32.tf32).  kPasses = 3 ('highest', 'high') splits
+// both operands, x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), and adds
+// lo*hi + hi*lo + hi*hi per k-step, small terms first: about fp32 accuracy (the
+// dropped lo*lo term is 2^-22 of a product).  kPasses = 1 ('default') adds
+// hi*hi only: TF32, about 2^-11 of a product.  The filter product, log and
+// energy are IEEE fp32 in every tier.
+//
+// Bound on an H100: the DFT products, kPasses * 2 * frames * K * 2nb
+// operations against the 495 TFLOP/s dense TF32 rate, plus the fp32 filter
+// product; the signal is read once and the features written once.  Every
+// block reads the whole packed DFT operand (hi and lo: 1.6 MB at K 400, dft
+// 512) from L2, so a block takes 128 frames of one row, and L2 traffic is
+// 1.6 MB per 128 frames.  The block
+//   1. stages its samples in shared memory by cp.async while the producer's
+//      first copies are in flight: the span [f0 * stride, f0 * stride + 127
+//      * stride + K) where it fits (frames overlap, so this is all of them),
+//      else slabs of K of each frame, staged again as the walk reaches them
+//      (back and forth, so a chunk starts on the slab the last one ended
+//      on); a skew of 4 floats every 2^sh (the launcher picks sh for the
+//      stride) keeps the fragment loads free of most bank conflicts;
+//   2. walks the bins in chunks of 64: chunk c's 128 columns are the real and
+//      mixed columns of bins [64c, 64c + 64) side by side (the mixed column
+//      of bin 0 holds the Nyquist cosine, for even DFT sizes), so one
+//      thread's accumulator pair is one bin's (re, im);
+//   3. has one producer warp stream each chunk's hi / lo k-steps (8 k x 128
+//      columns, K-major core matrices, packed by _pack_float) into a ring of
+//      2-6 stages of 2 k-steps by bulk (TMA) copies, signalled by full / empty
+//      mbarriers;
+//   4. runs each k-step on the tensor cores: two warpgroups, 64 frames each,
+//      issue wgmma m64n128k8 with the frame operand in registers (loaded from
+//      the staged samples and split hi / lo there) and the DFT operand read
+//      from shared memory by descriptor; one stage of products stays in
+//      flight while the next is issued, the two register sets alternating
+//      by stage so that ptxas need not serialise the products; where K is
+//      long (above 512) the split passes hand their sum to fp32 registers
+//      every 32 k-steps (kFold), since the tensor cores' own fp32 adds
+//      drift over thousands of them;
+//   5. ends each chunk with its spectrum in shared memory; warp w adds the
+//      chunk's weight products for filters w, w + 8, ..., lane l for frames
+//      4l .. 4l + 3, over the filter's span of nonzero weight rows only, and
+//      keeps the sums in shared memory; the last chunk adds the Nyquist
+//      term and the log floor, and the block writes its features, energy
+//      first, by coalesced stores.  No atomics and a fixed order: the
+//      result is deterministic.
 //
 // The launcher returns cudaGetLastError() after the launch; nothing here
 // allocates or synchronises.  Build:
@@ -22,8 +63,29 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr int kConsumers = 256;                  // 2 warpgroups of products
+constexpr int kThreads = kConsumers + 32;        // and one producer warp
+constexpr int kM = 128;                          // frames per block: 64 a warpgroup
+constexpr int kBins = 64;                        // bins per chunk
+constexpr int kCols = 2 * kBins;                 // chunk columns: (re, mixed) per bin
+constexpr int kStepK = 8;                        // k of one tf32 product
+constexpr int kCore = 128;                       // core matrix: 8 columns x 16 bytes
+constexpr int kPartBytes = kCols * kStepK * 4;   // hi (or lo) of one k-step: 4096
+constexpr int kStepBytes = 2 * kPartBytes;       // hi and lo
+constexpr int kStageSteps = 2;                   // k-steps a ring stage
+constexpr int kSlotBytes = kStageSteps * kStepBytes;
+constexpr int kMaxStages = 6;
+constexpr int kBarBytes = 128;                   // full and empty barriers
+constexpr int kSS = kM + 8;                      // spectrum row stride: conflict-free stores
+constexpr int kFT = 4;                           // frames of a lane's filter sums
+constexpr int kFS = kM + 4;                      // filter-sum row stride
+constexpr int kFoldSteps = 32;                   // k-steps a tensor-core sum runs at most
+                                                 // where K is long (kFold)
+static_assert(kM == 32 * kFT, "a warp's lanes take a filter's frames");
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -34,40 +96,236 @@ __device__ __forceinline__ float floor_log(float v, float log_floor) {
   return logf(fmaxf(v, log_floor));
 }
 
-// ---------------------------------------------------------------------------
-// fused float pipeline
-// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-template <int T>
-__global__ void float_feats_kernel(
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P, [%0], %1;\n"
+      "@!P bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// `bytes` more bytes are to land on `bar`, and this thread arrives on it
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// one bulk (TMA) copy of `bytes` contiguous bytes, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously; zeros where !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// barrier among the consumer warps only
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// fp32 -> tf32, round to nearest (ties away), as the host packing rounds
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// shared-memory matrix descriptor, K-major without swizzle: the low word
+// holds the start address in 16-byte units and the 128 bytes between the two
+// core matrices along k; the high word the 256 bytes between 8-column groups.
+// Adding n to the low word moves the start by 16 n bytes.
+__device__ __forceinline__ uint32_t desc_lo(uint32_t addr) {
+  return ((addr & 0x3FFFF) >> 4) | ((kCore >> 4) << 16);
+}
+
+__device__ __forceinline__ uint64_t desc(uint32_t lo) {
+  return ((uint64_t)((2 * kCore) >> 4) << 32) | lo;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warp are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 128 f32, the warpgroup's fragment layout) += a * b: a (64 x 8 tf32)
+// in registers, this thread's (row g, k t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4); b (8 x 128 tf32) K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16][4], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// What the launcher settles for a launch.  Samples: with `span`, the block's
+// samples [f0 * stride, f0 * stride + (kM - 1) * stride + steps * 8), staged
+// once, frame t at rs * t (rs = stride); else slabs of each frame, frame t
+// at rs * t (rs / 8 k-steps), staged anew as the walk reaches them.  Sample i of the buffer lies at float i + 4 * (i >> sh).
+struct FloatPlan {
+  int stages;  // ring stages, 2..kMaxStages
+  int span;    // 1: the span of samples; 0: slabs
+  int slab;    // k-steps a slab, a stretch of the walk: with span, steps (or
+               // kFoldSteps for a folded sum); else at most rs / 8
+  int rs;      // buffer floats between frames
+  int sh;      // skew shift (31: none)
+};
+
+// shared memory of a block: the fixed part (barriers, ring, spectrum,
+// filter sums, energy, Nyquist) before the sample buffer
+size_t float_fixed_bytes(int stages, int C) {
+  return kBarBytes + (size_t)stages * kSlotBytes +
+         sizeof(float) * ((size_t)kBins * kSS + (size_t)C * kFS + 2 * (size_t)kM);
+}
+
+template <int kPasses, bool kFold>
+__global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
     const float* __restrict__ x, long long row_stride, long long n_valid,
-    int frame_stride, int num_frames, int K, int half, int C,
-    const float* __restrict__ cosm, const float* __restrict__ sinm,
-    const float* __restrict__ w, float* __restrict__ out, int use_log,
-    int use_power, int energy, float log_floor) {
-  extern __shared__ float smem[];
-  const int nsamp = (T - 1) * frame_stride + K;
-  float* xs = smem;
-  float* spec = xs + nsamp;  // T * half
-  float* en = spec + T * half;  // T
+    int frame_stride, int num_frames, int K, int half, int nb, int C,
+    const float* __restrict__ packed, int steps, const float* __restrict__ w,
+    const int* __restrict__ spans, float* __restrict__ out, int use_log,
+    int use_power, int energy, float log_floor, const __grid_constant__ FloatPlan plan) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [stages]: a stage landed
+  uint64_t* empty = full + kMaxStages;                 // [stages]: a slot is free
+  // [stages][kStageSteps][hi, lo][16][2][8][4]: the packed layout, copied as it is
+  unsigned char* ring = smem + kBarBytes;
+  float* spec = reinterpret_cast<float*>(ring + (size_t)plan.stages * kSlotBytes);  // [kBins][kSS]
+  float* fsum = spec + kBins * kSS;  // [C][kFS]
+  float* en = fsum + C * kFS;        // [kM]
+  float* nyq = en + kM;              // [kM]
+  float* xs = nyq + kM;              // the sample buffer
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int b = blockIdx.y;
-  const int f0 = blockIdx.x * T;
+  const int f0 = blockIdx.x * kM;
   const float* xrow = x + (long long)b * row_stride;
   const long long start = (long long)f0 * frame_stride;
-  for (int i = threadIdx.x; i < nsamp; i += blockDim.x) {
-    const long long p = start + i;
-    xs[i] = p < n_valid ? xrow[p] : 0.f;
+  const int nchunks = (nb + kBins - 1) / kBins;
+  const int sh = plan.sh;
+  const int rs = plan.rs;
+  auto at = [sh](int i) { return i + ((i >> sh) << 2); };
+  // the slabs of K (one with span) walk back and forth, so that a chunk
+  // starts on the slab the last one ended on
+  const int nslabs = (steps + plan.slab - 1) / plan.slab;
+  auto slab_of = [nslabs](int chunk, int i) { return chunk & 1 ? nslabs - 1 - i : i; };
+
+  if (tid == 0) {
+    for (int i = 0; i < plan.stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kConsumers / 32);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  if (energy) {
-    for (int t = warp; t < T; t += nwarps) {
+  if (tid >= kConsumers) {
+    // the producer: each chunk's k-steps in order, a stage at a time; stage
+    // q goes into slot q mod stages once the slot's previous stage has been
+    // consumed
+    if (lane == 0) {
+      constexpr int kBytes = kPasses == 3 ? kStepBytes : kPartBytes;
+      int slot = 0, use = 0;
+      for (int chunk = 0; chunk < nchunks; ++chunk) {
+        const float* pc = packed + (long long)chunk * steps * (kStepBytes / 4);
+        for (int i = 0; i < nslabs; ++i) {
+          const int kb = slab_of(chunk, i) * plan.slab;
+          for (int q = kb; q < min(steps, kb + plan.slab); q += kStageSteps) {
+            if (use > 0) mbar_wait(empty + slot, (use - 1) & 1);
+            mbar_expect(full + slot, kStageSteps * kBytes);
+#pragma unroll
+            for (int u = 0; u < kStageSteps; ++u)
+              bulk_copy(ring + slot * kSlotBytes + u * kStepBytes,
+                        pc + (long long)(q + u) * (kStepBytes / 4), kBytes, full + slot);
+            if (++slot == plan.stages) {
+              slot = 0;
+              ++use;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the samples, staged while the producer's first copies are in flight; a
+  // sample past n_valid reads as zero (its copy comes from xrow)
+  auto stage = [&](float* dst, long long p) {
+    cp_async4(dst, p < n_valid ? xrow + p : xrow, p < n_valid);
+  };
+  if (plan.span) {
+    const int n = (kM - 1) * rs + steps * kStepK;
+    for (int i = tid; i < n; i += kConsumers) stage(xs + at(i), start + i);
+    cp_async_wait_all();
+    consumer_sync();
+  }
+
+  // energy of each frame: one consumer warp a frame, read when the block
+  // writes its features, after the consumer barriers between (slabs: as
+  // they are staged)
+  if (energy && plan.span) {
+    for (int t = warp; t < kM; t += kConsumers / 32) {
       float s = 0.f;
       for (int k = lane; k < K; k += 32) {
-        const float v = xs[t * frame_stride + k];
+        const float v = xs[at(t * rs + k)];
         s = fmaf(v, v, s);
       }
       s = warp_sum(s);
@@ -75,88 +333,260 @@ __global__ void float_feats_kernel(
     }
   }
 
-  for (int j = threadIdx.x; j < half; j += blockDim.x) {
-    float re[T], im[T];
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      re[t] = 0.f;
-      im[t] = 0.f;
+  // this thread's fragments: frames r0 = 64 wg + 16 (warp % 4) + g and r0 +
+  // 8; accumulator columns 8 nt + 2 t (+1), that is bin 4 nt + t's (re, mixed)
+  const int g8 = lane >> 2;
+  const int tig = lane & 3;
+  const int r0 = 64 * (warp >> 2) + 16 * (warp & 3) + g8;
+  const int base0 = r0 * rs + tig;
+  const int base1 = base0 + 8 * rs;
+  const uint32_t b_base = desc_lo(smem_addr(ring));
+
+  // slab mode: the slab from k-step kb, once every consumer has read the
+  // last; the first walk over the slabs also sums the energy
+  int loaded = -1;
+  auto stage_slab = [&](int kb, bool first) {
+    if (kb == loaded) return;
+    loaded = kb;
+    consumer_sync();
+    for (int t = warp; t < kM; t += kConsumers / 32) {
+      const long long p = start + (long long)t * frame_stride + kb * kStepK;
+      for (int k = lane; k < rs; k += 32) stage(xs + at(t * rs + k), p + k);
     }
-    const float* cj = cosm + j;
-    const float* sj = sinm + j;
-    for (int k = 0; k < K; ++k) {
-      const float c = __ldg(cj + (long long)k * half);
-      const float s = __ldg(sj + (long long)k * half);
-      const float* xk = xs + k;
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const float v = xk[t * frame_stride];
-        re[t] = fmaf(v, c, re[t]);
-        im[t] = fmaf(v, s, im[t]);
+    cp_async_wait_all();
+    consumer_sync();
+    if (energy && first) {
+      const int kn = min(plan.slab * kStepK, K - kb * kStepK);
+      for (int t = warp; t < kM; t += kConsumers / 32) {
+        float s = 0.f;
+        for (int k = lane; k < kn; k += 32) {
+          const float v = xs[at(t * rs + k)];
+          s = fmaf(v, v, s);
+        }
+        s = warp_sum(s);
+        if (lane == 0) en[t] = kb ? en[t] + s : s;
       }
     }
+  };
+
+  // acc: the tensor cores' sum; with kFold, `part` takes it over by IEEE fp32
+  // adds after every slab, so that no sum runs over more than kFoldSteps
+  // k-steps on the tensor cores (their fp32 adds of a long K drift)
+  float acc[16][4], part[16][4];
 #pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const float p = re[t] * re[t] + im[t] * im[t];
-      spec[t * half + j] = use_power ? p : sqrtf(p);
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[nt][e] = 0.f;
+      part[nt][e] = 0.f;
+    }
+
+  // one ring stage: the frame fragments of its k-steps from the samples
+  // (split hi / lo), then its products; `hi` / `lo` are this stage's own
+  // registers, which the products read until they are done
+  int slot = 0, use = 0, prev = -1;  // ring slot and its use of this stage; the last one's
+  auto run_stage = [&](int q, int kb, uint32_t (&hi)[kStageSteps][4],
+                       uint32_t (&lo)[kStageSteps][4]) {
+#pragma unroll
+    for (int u = 0; u < kStageSteps; ++u) {
+      const int k0 = (q + u - kb) * kStepK;
+      const float v[4] = {xs[at(base0 + k0)], xs[at(base1 + k0)], xs[at(base0 + k0 + 4)],
+                          xs[at(base1 + k0 + 4)]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi[u][e] = to_tf32(v[e]);
+        if constexpr (kPasses == 3) lo[u][e] = to_tf32(__fsub_rn(v[e], __uint_as_float(hi[u][e])));
+      }
+    }
+    mbar_wait(full + slot, use & 1);
+    const uint32_t b_slot = b_base + ((slot * kSlotBytes) >> 4);
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < kStageSteps; ++u) {
+      const uint32_t b_hi = b_slot + ((u * kStepBytes) >> 4);
+      if constexpr (kPasses == 3) {
+        const uint32_t b_lo = b_hi + (kPartBytes >> 4);
+        wgmma_tf32(acc, lo[u], desc(b_hi));
+        wgmma_tf32(acc, hi[u], desc(b_lo));
+      }
+      wgmma_tf32(acc, hi[u], desc(b_hi));
+    }
+    // the previous stage's products are done (this one's may still run):
+    // its slot is free
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (prev >= 0 && lane == 0) mbar_arrive(empty + prev);
+    prev = slot;
+    if (++slot == plan.stages) {
+      slot = 0;
+      ++use;
+    }
+  };
+
+  uint32_t hi0[kStageSteps][4], lo0[kStageSteps][4], hi1[kStageSteps][4], lo1[kStageSteps][4];
+  for (int chunk = 0; chunk < nchunks; ++chunk) {
+    for (int i = 0; i < nslabs; ++i) {
+      const int kb = slab_of(chunk, i) * plan.slab;
+      const int ke = min(steps, kb + plan.slab);
+      if (!plan.span) stage_slab(kb, chunk == 0);
+      // the register sets alternate, and an odd last stage takes the first
+      // set after the second: no path reuses a set whose products may run
+      const int koff = plan.span ? 0 : kb;
+      int q = kb;
+      for (; q + 2 * kStageSteps <= ke; q += 2 * kStageSteps) {
+        run_stage(q, koff, hi0, lo0);
+        run_stage(q + kStageSteps, koff, hi1, lo1);
+      }
+      if (q < ke) run_stage(q, koff, hi0, lo0);
+      wgmma_wait<0>();
+      if constexpr (kFold) {
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            part[nt][e] = __fadd_rn(part[nt][e], acc[nt][e]);
+            acc[nt][e] = 0.f;
+          }
+      }
+    }
+
+    // chunk done: its spectrum, once every consumer is done with the
+    // previous chunk's; the mixed column of bin 0 carries the Nyquist value
+    consumer_sync();
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = r0 + 8 * h;
+        const int jl = 4 * nt + tig;
+        const int j = chunk * kBins + jl;
+        const float re = kFold ? part[nt][2 * h] : acc[nt][2 * h];
+        const float mixed = kFold ? part[nt][2 * h + 1] : acc[nt][2 * h + 1];
+        if (j < nb) {
+          float p = re * re;
+          if (j == 0) {
+            nyq[t] = use_power ? mixed * mixed : fabsf(mixed);
+          } else {
+            p += mixed * mixed;
+          }
+          spec[jl * kSS + t] = use_power ? p : sqrtf(p);
+        }
+        acc[nt][2 * h] = part[nt][2 * h] = 0.f;
+        acc[nt][2 * h + 1] = part[nt][2 * h + 1] = 0.f;
+      }
+    consumer_sync();
+
+    // the chunk's share of the filter sums, bins ascending over the filter's
+    // nonzero span within the chunk: warp w takes filters w, w + 8, ... and
+    // lane l frames 4l .. 4l + 3, so a warp walks one span in step, loads
+    // each weight once for all its lanes and reads the spectrum without
+    // bank conflicts; the sums wait in fsum between chunks
+    const int j0 = chunk * kBins;
+    const bool last = chunk + 1 == nchunks;
+    for (int c = warp; c < C; c += kConsumers / 32) {
+      float4* fs = reinterpret_cast<float4*>(fsum + c * kFS) + lane;
+      float4 a = chunk ? *fs : make_float4(0.f, 0.f, 0.f, 0.f);
+      const int ja = max(j0, __ldg(spans + 2 * c));
+      const int jb = min(min(j0 + kBins, nb), __ldg(spans + 2 * c + 1));
+      const float* sp = spec + lane * kFT;
+      for (int j = ja; j < jb; ++j) {
+        const float wj = __ldg(w + (long long)j * C + c);
+        const float4 v = *reinterpret_cast<const float4*>(sp + (j - j0) * kSS);
+        a.x = fmaf(v.x, wj, a.x);
+        a.y = fmaf(v.y, wj, a.y);
+        a.z = fmaf(v.z, wj, a.z);
+        a.w = fmaf(v.w, wj, a.w);
+      }
+      if (last) {
+        // the Nyquist row of the weights (even DFT sizes: nb = half - 1; an
+        // odd size has none, and its DC slot is empty), then the log floor
+        const float wn = nb < half ? __ldg(w + (long long)nb * C + c) : 0.f;
+        const float4 q = reinterpret_cast<const float4*>(nyq)[lane];
+        a = make_float4(fmaf(q.x, wn, a.x), fmaf(q.y, wn, a.y), fmaf(q.z, wn, a.z),
+                        fmaf(q.w, wn, a.w));
+        if (use_log)
+          a = make_float4(floor_log(a.x, log_floor), floor_log(a.y, log_floor),
+                          floor_log(a.z, log_floor), floor_log(a.w, log_floor));
+      }
+      *fs = a;
     }
   }
-  __syncthreads();
 
+  // the block's features, frame by frame, by coalesced stores: the energy
+  // column, then the filters from fsum
+  consumer_sync();
   const int nc = C + energy;
-  for (int idx = threadIdx.x; idx < T * C; idx += blockDim.x) {
-    const int t = idx / C;
-    const int c = idx - t * C;
-    const int f = f0 + t;
-    if (f >= num_frames) continue;
-    const float* sp = spec + t * half;
-    float a = 0.f;
-    for (int j = 0; j < half; ++j) a = fmaf(sp[j], __ldg(w + (long long)j * C + c), a);
-    if (use_log) a = floor_log(a, log_floor);
-    out[((long long)b * num_frames + f) * nc + energy + c] = a;
+  const int nf = min(kM, num_frames - f0);
+  float* ob = out + ((long long)b * num_frames + f0) * nc;
+  for (int i = tid; i < nf * nc; i += kConsumers) {
+    const int t = i / nc;
+    const int c = i - t * nc - energy;
+    float v;
+    if (c >= 0) {
+      v = fsum[c * kFS + t];
+    } else {
+      v = en[t] / (float)K;
+      if (!use_power) v = sqrtf(v);
+      if (use_log) v = floor_log(v, log_floor);
+    }
+    ob[i] = v;
   }
-  if (energy) {
-    for (int t = threadIdx.x; t < T; t += blockDim.x) {
-      const int f = f0 + t;
-      if (f >= num_frames) continue;
-      float e = en[t] / (float)K;
-      if (!use_power) e = sqrtf(e);
-      if (use_log) e = floor_log(e, log_floor);
-      out[((long long)b * num_frames + f) * nc] = e;
+}
+
+// the most shared-memory wavefronts a warp's fragment load takes with frames
+// `rs` floats apart and skew shift `sh`, over the first k-steps
+int skew_cost(int rs, int sh) {
+  int worst = 0;
+  for (int k0 = 0; k0 < 256; k0 += kStepK)
+    for (int kh = 0; kh < 8; kh += 4) {
+      int count[32] = {};
+      for (int g = 0; g < 8; ++g)
+        for (int t = 0; t < 4; ++t) {
+          const long long i = (long long)g * rs + k0 + kh + t;
+          ++count[(i + ((i >> sh) << 2)) & 31];
+        }
+      for (int c : count) worst = worst > c ? worst : c;
+    }
+  return worst;
+}
+
+// the skew shift with the fewest conflicts (31: none), searched anew for
+// each launch (some 25,000 integer operations).  At stride 160 (a 10 ms
+// shift) it takes the fragment loads from 8-way bank conflicts to none;
+// tools/torch_float_variants.py times the kernel against no skew
+int pick_skew(int rs) {
+  int best = 31, cost = skew_cost(rs, 31);
+  for (int sh = 5; sh <= 9; ++sh) {
+    const int c = skew_cost(rs, sh);
+    if (c < cost) {
+      cost = c;
+      best = sh;
     }
   }
+  return best;
 }
 
-size_t float_smem_bytes(int T, int frame_stride, int K, int half) {
-  return sizeof(float) * ((size_t)(T - 1) * frame_stride + K + (size_t)T * half + T);
+// floats of a buffer holding logical samples [0, n) with skew shift sh
+int buf_floats(long long n, int sh) {
+  return (int)(n + ((n >> sh) << 2) + 8);
 }
 
-template <int T>
-cudaError_t launch_float(dim3 grid, int threads, size_t smem, cudaStream_t stream,
-                         const float* x, long long row_stride, long long n_valid,
-                         int frame_stride, int num_frames, int K, int half, int C,
-                         const float* cosm, const float* sinm, const float* w,
-                         float* out, int use_log, int use_power, int energy,
-                         float log_floor) {
+template <int kPasses, bool kFold>
+cudaError_t launch_float(dim3 grid, size_t smem, cudaStream_t stream, const float* x,
+                         long long row_stride, long long n_valid, int frame_stride,
+                         int num_frames, int K, int half, int nb, int C, const float* packed, int steps,
+                         const float* w, const int* spans, float* out, int use_log,
+                         int use_power, int energy, float log_floor, const FloatPlan& plan) {
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(float_feats_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(float_feats_kernel<kPasses, kFold>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
-  float_feats_kernel<T><<<grid, threads, smem, stream>>>(
-      x, row_stride, n_valid, frame_stride, num_frames, K, half, C, cosm, sinm, w,
-      out, use_log, use_power, energy, log_floor);
+  float_feats_kernel<kPasses, kFold><<<grid, kThreads, smem, stream>>>(
+      x, row_stride, n_valid, frame_stride, num_frames, K, half, nb, C, packed, steps, w, spans,
+      out, use_log, use_power, energy, log_floor, plan);
   return cudaGetLastError();
-}
-
-int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
-cudaError_t smem_optin(int* bytes) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
 }  // namespace
@@ -165,43 +595,83 @@ extern "C" {
 
 // Features of `batch` rows of fp32 samples.  Frame f of row b is samples
 // [f*frame_stride, f*frame_stride + K) of x + b*row_stride; samples at or
-// past n_valid read as zero.  out is (batch, num_frames, C + energy) fp32.
-// Returns a cudaError_t; -1 when no tile fits in shared memory.
+// past n_valid read as zero.  packed holds the DFT operand as fp32 (chunks,
+// steps, 2, 16, 2, 8, 4), 16-byte aligned: [chunk c][k-step u][hi, lo][column
+// group][k half][column in group][k in half], chunk c's column 2i the real
+// and 2i + 1 the mixed column of bin 64c + i (bins past nb zero), k-step u
+// rows [8u, 8u + 8), zero past K; steps is even.  w is (half, C) fp32.  nb
+// is half - 1 where the mixed column of bin 0 holds the Nyquist cosine (even
+// DFT sizes; w's last row is the Nyquist row) and half where it is zero (odd
+// sizes).  spans (C x 2 int32) bound each filter's nonzero
+// weight rows as [first, last + 1).  passes is 3 (split operands) or 1
+// (TF32).  out is (batch, num_frames, C + energy) fp32.  Returns a
+// cudaError_t; -1 when not even a slab of one stage fits in shared memory, -2
+// for bad arguments.
 int stk_float_feats(const float* x, long long batch, long long row_stride,
                     long long n_valid, int frame_stride, int num_frames, int K,
-                    int half, int C, const float* cosm, const float* sinm,
-                    const float* w, float* out, int use_log, int use_power,
-                    int energy, float log_floor, void* stream) {
-  int optin = 0;
-  cudaError_t e = smem_optin(&optin);
+                    int half, int nb, int C, const float* packed, int steps, const float* w,
+                    const int* spans, float* out, int use_log, int use_power,
+                    int energy, float log_floor, int passes, void* stream) {
+  if ((passes != 1 && passes != 3) || K < 1 || nb < 1 || C < 1 || frame_stride < 1 ||
+      (nb != half && nb != half - 1) ||
+      steps < (K + kStepK - 1) / kStepK || steps % kStageSteps ||
+      reinterpret_cast<size_t>(packed) % 16)
+    return -2;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const int threads = round_up(half < 512 ? half : 512, 32);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles[] = {32, 16, 8, 4, 2, 1};
-  for (int T : tiles) {
-    const size_t smem = float_smem_bytes(T, frame_stride, K, half);
-    if (smem > (size_t)optin) continue;
-    dim3 grid((num_frames + T - 1) / T, (unsigned)batch);
-#define STK_FLOAT(TT)                                                            \
-  case TT:                                                                       \
-    return (int)launch_float<TT>(grid, threads, smem, s, x, row_stride, n_valid, \
-                                 frame_stride, num_frames, K, half, C, cosm, sinm, \
-                                 w, out, use_log, use_power, energy, log_floor);
-    switch (T) {
-      STK_FLOAT(32)
-      STK_FLOAT(16)
-      STK_FLOAT(8)
-      STK_FLOAT(4)
-      STK_FLOAT(2)
-      STK_FLOAT(1)
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  FloatPlan plan = {};
+  size_t smem = 0;
+  // the span of samples with the deepest ring that fits; else slabs of K
+  // with a ring of three stages (two where three leave no slab)
+  const int span_sh = pick_skew(frame_stride);
+  const long long span_n = (long long)(kM - 1) * frame_stride + (long long)steps * kStepK;
+  for (int stages = kMaxStages; stages >= 2 && !smem; --stages) {
+    const size_t need = float_fixed_bytes(stages, C) + sizeof(float) * (size_t)buf_floats(span_n, span_sh);
+    if (span_n < (1LL << 30) && need <= (size_t)optin) {
+      plan = {stages, 1, steps, frame_stride, span_sh};
+      smem = need;
     }
-#undef STK_FLOAT
   }
-  return -1;
+  for (int stages = 3; stages >= 2 && !smem; --stages) {
+    const size_t fixed = float_fixed_bytes(stages, C);
+    if (fixed >= (size_t)optin) continue;
+    const size_t room = ((size_t)optin - fixed) / sizeof(float);
+    // slabs of whole stages; the skew adds at most an eighth
+    for (int slab = (int)(room * 8 / 9 / ((size_t)kM * kStepK)) / kStageSteps * kStageSteps;
+         slab >= kStageSteps; slab -= kStageSteps) {
+      const int s = slab < steps ? slab : steps;
+      const int rs = s * kStepK;
+      const int sh = pick_skew(rs);
+      const int n = buf_floats((long long)kM * rs, sh);
+      if ((size_t)n <= room) {
+        plan = {stages, 0, s, rs, sh};
+        smem = fixed + sizeof(float) * (size_t)n;
+        break;
+      }
+    }
+  }
+  if (!smem) return -1;
+  // split passes over more than 2 kFoldSteps k-steps (K above 512) fold
+  // their tensor-core sums every slab of at most kFoldSteps
+  const bool fold = passes == 3 && steps > 2 * kFoldSteps;
+  if (fold && plan.slab > kFoldSteps) plan.slab = kFoldSteps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid((num_frames + kM - 1) / kM, (unsigned)batch);
+#define STK_FLOAT(P, F)                                                                        \
+  launch_float<P, F>(grid, smem, st, x, row_stride, n_valid, frame_stride, num_frames, K, half, \
+                     nb, C, packed, steps, w, spans, out, use_log, use_power, energy, log_floor, \
+                     plan)
+  cudaError_t rc = passes == 1 ? STK_FLOAT(1, false) : fold ? STK_FLOAT(3, true) : STK_FLOAT(3, false);
+#undef STK_FLOAT
+  return (int)rc;
 }
 
 const char* stk_error_string(int code) {
-  if (code == -1) return "no frame tile fits in shared memory";
+  if (code == -1) return "no slab of frames fits in shared memory";
+  if (code == -2) return "bad arguments or packed layout";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -22,8 +22,11 @@ tensors or launches its kernel on the current CUDA stream for CUDA tensors
 (raising if the launch fails).  It never falls back from the card to a
 plain version.  Each wrapper counts its launches in ``.launches``.
 
-The float kernel computes every precision tier ('highest', 'high',
-'default') in IEEE fp32; the TPU's bf16 tiers have no counterpart yet.
+The float kernel runs its DFT products on the TF32 tensor cores: 'highest'
+(and None) and 'high' as three passes over operands split ``hi + lo``
+(about fp32 accuracy), 'default' as one TF32 pass (within the reference's
+1.5e-2 of its reduced tier); its filter product is IEEE fp32 in every tier.
+On the CPU every tier is IEEE fp32, as in JAX there.
 """
 
 import ctypes
@@ -75,15 +78,18 @@ _SIGNATURES = {
         ctypes.c_int,  # num_frames
         ctypes.c_int,  # K
         ctypes.c_int,  # half
+        ctypes.c_int,  # nb
         ctypes.c_int,  # C
-        ctypes.c_void_p,  # cos
-        ctypes.c_void_p,  # sin
+        ctypes.c_void_p,  # packed
+        ctypes.c_int,  # steps
         ctypes.c_void_p,  # weights
+        ctypes.c_void_p,  # spans
         ctypes.c_void_p,  # out
         ctypes.c_int,  # use_log
         ctypes.c_int,  # use_power
         ctypes.c_int,  # energy
         ctypes.c_float,  # log_floor
+        ctypes.c_int,  # passes
         ctypes.c_void_p,  # stream
     ],
     "stk_int8_feats": [
@@ -206,6 +212,38 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# --- per-tensor layouts, built once ------------------------------------------
+
+
+def _filter_spans(w_hi, w_lo=None):
+    """``(C, 2)`` int32: each filter's first and one-past-last row with a
+    nonzero ``w_hi`` (or ``w_lo``, where given) weight (empty as ``(nb,
+    0)``).  The kernels' filter sums skip the rows outside, whose terms are
+    exact zeros."""
+    nz = w_hi != 0 if w_lo is None else (w_hi != 0) | (w_lo != 0)
+    rows = torch.arange(nz.shape[0], device=nz.device)[:, None]
+    first = torch.where(nz, rows, nz.shape[0]).amin(0)
+    last = torch.where(nz, rows + 1, 0).amax(0)
+    return torch.stack([first, last], dim=1).to(torch.int32).contiguous()
+
+
+_PACKED = {}  # id(gmats or dft_cos) -> (weakref to it, key, packed layout)
+_SPANS = {}  # id(w_hi or weights) -> (weakref to it, key, filter spans)
+
+
+def _cached(cache, tensor, key, build):
+    """``build()`` once per ``tensor``: the value is kept in ``cache`` while
+    the tensor lives and ``key`` (its version and what else the value
+    depends on) is unchanged, so a launch only reads it."""
+    slot = id(tensor)
+    hit = cache.get(slot)
+    if hit is not None and hit[0]() is tensor and hit[1] == key:
+        return hit[2]
+    value = build()
+    cache[slot] = (weakref.ref(tensor, lambda r: cache.pop(slot, None)), key, value)
+    return value
+
+
 # --- B1 / B3: the fused float pipeline ---------------------------------------
 
 
@@ -255,12 +293,10 @@ def stft_feats_frames(
     -> ``(batch, num_frames, num_coeffs)`` float32.
 
     Replaces ``speech_tpu/ops/pallas_stft.py:stft_feats_pallas_from_frames``
-    (``_frames_kernel``).  Bound on an H100: the fp32 FMAs of the two DFT
-    products (``2*F*K*half*2`` operations against the 67 TFLOP/s fp32
-    rate); the frames themselves are read once.  Design: one block per
-    (row, tile of frames) stages the tile in shared memory and keeps its
-    spectrum there for the filter product, so only features reach device
-    memory.
+    (``_frames_kernel``).  The kernel of :func:`stft_feats_rows` with a
+    frame stride of ``K``: the frames overlap nothing, so its blocks stage
+    slabs of ``K`` of each frame in shared memory.  ``precision`` picks the
+    tensor-core passes as there.
     """
     _check_precision(precision)
     frames = frames.to(torch.float32)
@@ -294,6 +330,7 @@ def stft_feats_frames(
         use_power=use_power,
         include_energy=include_energy,
         log_floor=log_floor,
+        precision=precision,
         counted=stft_feats_frames,
     )
 
@@ -346,15 +383,21 @@ def stft_feats_rows(
     past the row's end read as zero.
 
     Replaces ``speech_tpu/ops/pallas_stft.py:stft_feats_pallas``
-    (``_rows_kernel`` + ``_feats_from_pieces``).  Bound on an H100: the
-    fp32 FMAs of the two DFT products, ``2*F*(2*K*half + half*C)``
-    operations against the 67 TFLOP/s fp32 rate (about 1.2 ms at 128 x
-    15 s); its bytes, the signal read once and the features written once,
-    take some 0.05 ms.  Design: one block per (row, tile of frames) stages
-    ``(tile-1)*shift + K`` samples in shared memory, so frames never reach
-    device memory, and keeps the tile's spectrum in shared memory for the
-    filter product.  Any frame shift works; the TPU's ``shift % 8`` gate
-    does not apply.
+    (``_rows_kernel`` + ``_feats_from_pieces``).  Bound on an H100: the DFT
+    products, ``passes * 2*F*K*2nb`` operations against the 495 TFLOP/s
+    dense TF32 rate (3 passes for 'highest' and 'high', 1 for 'default'),
+    plus the fp32 filter product ``2*F*half*C`` at 67 TFLOP/s; its bytes,
+    the signal read once and the features written once, take some 0.05 ms.
+    Design (``csrc/stft_kernels.cu``): one block per (row, 128 frames)
+    stages ``127*shift + K`` samples in shared memory (slabs of ``K`` of
+    each frame where that does not fit), so frames never reach device
+    memory; two warpgroups run ``wgmma`` TF32 products with the frames in
+    registers (split there for 3 passes) and the DFT operand of
+    :func:`_pack_float` streaming through a shared-memory ring, one 64-bin
+    chunk of (cos, sin) columns at a time; each chunk's spectrum stays in
+    shared memory for the filter sums over each filter's nonzero rows.  Any
+    frame shift and ``K`` work; the TPU's ``shift % 8`` gate does not
+    apply.
     """
     _check_precision(precision)
     padded = padded.to(torch.float32)
@@ -374,8 +417,6 @@ def stft_feats_rows(
             precision=precision,
         )
     cos, sin, weights = _float_consts(params)
-    if cos.shape[0] != frame_length:
-        raise ValueError(f"dft_cos has {cos.shape[0]} rows, frame_length is {frame_length}")
     _check_cuda(padded, padded=padded, dft_cos=cos, dft_sin=sin, weights=weights)
     return _launch_float(
         padded,
@@ -392,6 +433,7 @@ def stft_feats_rows(
         use_power=use_power,
         include_energy=include_energy,
         log_floor=log_floor,
+        precision=precision,
         counted=stft_feats_rows,
     )
 
@@ -399,11 +441,13 @@ def stft_feats_rows(
 def _launch_float(
     x, cos, sin, weights, *, batch, row_stride, n_valid, frame_stride,
     num_frames, frame_length, use_log, use_power, include_energy, log_floor,
-    counted,
+    precision, counted,
 ):
     half = cos.shape[1]
     if sin.shape != cos.shape or weights.shape[0] != half:
         raise ValueError("dft_cos, dft_sin and weights disagree in shape")
+    if cos.shape[0] != frame_length:
+        raise ValueError(f"dft_cos has {cos.shape[0]} rows, frame_length is {frame_length}")
     out = torch.empty(
         (batch, num_frames, weights.shape[1] + int(include_energy)),
         dtype=torch.float32,
@@ -411,16 +455,96 @@ def _launch_float(
     )
     if out.numel() == 0:
         return out
+    packed, nb, steps = _packed_float(cos, sin)
+    spans = _cached(_SPANS, weights, weights._version, lambda: _filter_spans(weights))
     with torch.cuda.device(x.device):
         _launch(
             "stk_float_feats", counted.__name__,
             x.data_ptr(), batch, row_stride, n_valid, frame_stride, num_frames,
-            frame_length, half, weights.shape[1], cos.data_ptr(), sin.data_ptr(),
-            weights.data_ptr(), out.data_ptr(), int(use_log), int(use_power),
-            int(include_energy), float(log_floor), _stream(x),
+            frame_length, half, nb, weights.shape[1], packed.data_ptr(), steps,
+            weights.data_ptr(), spans.data_ptr(), out.data_ptr(), int(use_log),
+            int(use_power), int(include_energy), float(log_floor),
+            _float_passes(precision), _stream(x),
         )
     counted.launches += 1
     return out
+
+
+_F_STEP_K = 8  # k rows of one TF32 tensor-core product
+_F_STAGE_STEPS = 2  # k-steps a ring stage: the packing pads to a multiple
+_F_CHUNK_BINS = 64  # bins per column chunk
+
+
+def _float_passes(precision) -> int:
+    """Tensor-core passes of a float tier: 3 (split operands, about fp32)
+    for 'highest', None and 'high'; 1 (TF32) for 'default'."""
+    _check_precision(precision)
+    return 1 if precision == "default" else 3
+
+
+def _tf32(x):
+    """``x`` rounded to TF32 (10 stored mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds: float32 whose 13 low bits
+    are zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _float_nb(cos, sin) -> int:
+    """Bins with a column pair in the float layout: ``half - 1`` where the
+    last bin is a Nyquist bin (even DFT size: its sin column is zero but
+    for the float64 rounding of ``-sin(pi t)``, some 1e-14 of the window,
+    which the layout drops as the plain path's Nyquist split does), else
+    ``half`` (odd size: every sin column is real)."""
+    half = cos.shape[1]
+    if half < 2:
+        return half
+    nyq = bool(sin[:, -1].abs().max() <= 2.0**-30 * cos[:, -1].abs().max())
+    return half - 1 if nyq else half
+
+
+def _pack_float(cos, sin):
+    """The window-folded DFT matrices packed for the TF32 tensor-core
+    kernel, split ``hi + lo``.
+
+    Returns ``(packed, nb, steps)``: ``packed`` is float32 ``(chunks,
+    steps, 2, 16, 2, 8, 4)`` with ``chunks = ceil(nb / 64)``: [chunk][k-step]
+    [hi, lo][column group][k half][column in group][k in half], so each
+    k-step's hi and lo are 16 x 2 core matrices (8 columns x 4 k, 16 bytes
+    a column) in the K-major layout the tensor cores read from shared
+    memory.  Chunk ``c``'s column ``2i`` is the cos column and ``2i + 1``
+    the mixed column of bin ``64c + i``: the sin column, but at bin 0 (whose
+    sin column is zero) the Nyquist cos column where there is one (see
+    :func:`_float_nb`), else zero.  ``hi = tf32(v)`` and ``lo = tf32(v -
+    hi)``.  K-step ``u`` holds rows ``[8u, 8u + 8)``, zero past ``K``;
+    ``steps = ceil(K / 8)`` rounded up to even; columns past ``nb`` are
+    zero."""
+    K, half = cos.shape
+    nb = _float_nb(cos, sin)
+    chunks = -(-nb // _F_CHUNK_BINS)
+    steps = -(-K // (_F_STEP_K * _F_STAGE_STEPS)) * _F_STAGE_STEPS
+    nyq = cos[:, nb:] if nb < half else torch.zeros_like(cos[:, :1])
+    mixed = torch.cat([nyq, sin[:, 1:nb]], dim=1)
+    cols = torch.stack([cos[:, :nb], mixed], dim=-1).reshape(K, 2 * nb)
+    cols = torch.nn.functional.pad(
+        cols, (0, 2 * (chunks * _F_CHUNK_BINS - nb), 0, steps * _F_STEP_K - K)
+    )
+    hi = _tf32(cols)
+    lo = _tf32(cols - hi)
+    packed = (
+        torch.stack([hi, lo])
+        .reshape(2, steps, 2, 4, chunks, 2 * _F_CHUNK_BINS // 8, 8)
+        .permute(4, 1, 0, 5, 2, 6, 3)
+        .contiguous()
+    )
+    return packed, nb, steps
+
+
+def _packed_float(cos, sin):
+    """:func:`_pack_float`, once per dft_cos tensor (same version, same
+    dft_sin at the same version)."""
+    key = (cos._version, id(sin), sin._version)
+    return _cached(_PACKED, cos, key, lambda: _pack_float(cos, sin))
 
 
 # --- B2: the int8 digit tiers --------------------------------------------------
@@ -551,35 +675,6 @@ def _pack_groups(gmats, offsets, frame_length: int):
         return (ctypes.c_int * len(vals))(*vals)
 
     return packed, steps, (len(members), ints(members), ints(xs_flat), ints(svals))
-
-
-def _filter_spans(w_hi, w_lo):
-    """``(C, 2)`` int32: each filter's first and one-past-last row with a
-    nonzero ``w_hi`` or ``w_lo`` weight (empty as ``(nb, 0)``).  The
-    kernel's filter sums skip the rows outside, whose terms are exact
-    zeros."""
-    nz = (w_hi != 0) | (w_lo != 0)
-    rows = torch.arange(nz.shape[0], device=nz.device)[:, None]
-    first = torch.where(nz, rows, nz.shape[0]).amin(0)
-    last = torch.where(nz, rows + 1, 0).amax(0)
-    return torch.stack([first, last], dim=1).to(torch.int32).contiguous()
-
-
-_PACKED = {}  # id(gmats) -> (weakref to gmats, key, packed layout)
-_SPANS = {}  # id(w_hi) -> (weakref to w_hi, key, filter spans)
-
-
-def _cached(cache, tensor, key, build):
-    """``build()`` once per ``tensor``: the value is kept in ``cache`` while
-    the tensor lives and ``key`` (its version and what else the value
-    depends on) is unchanged, so a launch only reads it."""
-    slot = id(tensor)
-    hit = cache.get(slot)
-    if hit is not None and hit[0]() is tensor and hit[1] == key:
-        return hit[2]
-    value = build()
-    cache[slot] = (weakref.ref(tensor, lambda r: cache.pop(slot, None)), key, value)
-    return value
 
 
 def _packed_groups(gmats, offsets, frame_length: int):

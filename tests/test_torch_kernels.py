@@ -23,6 +23,7 @@ BANK = {"name": "fbank", "num_filts": 40, "sampling_rate": 16000}
 TOL_FLOAT = 1e-4  # f32 reduction order (tests/test_pallas.py:55)
 TOL_INT8 = 2e-6  # exact digit tiers (tests/test_pallas.py:175)
 RTOL_LINEAR = 1e-5  # linear features carry the scale: f32 relative rounding
+TOL_DEFAULT = 1.5e-2  # the reduced float tier ('default'; pallas_stft.py:23-27)
 
 COMBOS = [
     (e, p, lg) for e in (False, True) for p in (False, True) for lg in (False, True)
@@ -56,6 +57,36 @@ def _padded(jc, lengths, buf=3000, seed=70):
     return np.asarray(padded), JF.frame_count_np(buf, fl, fs)
 
 
+@pytest.fixture
+def pinned_numerics():
+    """Fix the global state that sets the float tier's CPU arithmetic for
+    the test, and give the earlier settings back after: torch on one thread (one
+    reduction order), float32 products in IEEE fp32 (matmul precision and
+    oneDNN), JAX with x64 on (as tests/conftest.py sets it) and no default
+    matmul precision."""
+    mkldnn = torch.backends.mkldnn.matmul
+    saved = (
+        torch.get_num_threads(),
+        torch.get_float32_matmul_precision(),
+        mkldnn.fp32_precision,
+        jax.config.jax_enable_x64,
+        jax.config.jax_default_matmul_precision,
+    )
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+    mkldnn.fp32_precision = "ieee"
+    jax.config.update("jax_enable_x64", True)
+    jax.config.update("jax_default_matmul_precision", None)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved[0])
+        torch.set_float32_matmul_precision(saved[1])
+        mkldnn.fp32_precision = saved[2]
+        jax.config.update("jax_enable_x64", saved[3])
+        jax.config.update("jax_default_matmul_precision", saved[4])
+
+
 def _close(got, want, tol, use_log):
     assert got.shape == want.shape
     rtol = 0.0 if use_log else RTOL_LINEAR
@@ -63,6 +94,7 @@ def _close(got, want, tol, use_log):
     assert np.allclose(got, want, rtol=rtol, atol=tol), err
 
 
+@pytest.mark.usefixtures("pinned_numerics")
 @pytest.mark.parametrize("include_energy,use_power,use_log", COMBOS, ids=COMBO_IDS)
 def test_rows_plain_matches_pallas(include_energy, use_power, use_log):
     jc, tc = _pair(use_power=use_power, include_energy=include_energy)
@@ -84,6 +116,7 @@ def test_rows_plain_matches_pallas(include_energy, use_power, use_log):
     _close(got.numpy(), want, TOL_FLOAT, use_log)
 
 
+@pytest.mark.usefixtures("pinned_numerics")
 @pytest.mark.parametrize("include_energy,use_power,use_log", COMBOS, ids=COMBO_IDS)
 def test_frames_plain_matches_pallas(include_energy, use_power, use_log):
     jc, tc = _pair(use_power=use_power, include_energy=include_energy)
@@ -346,4 +379,148 @@ def test_accurate_adversary_bound_held():
         errs[precision] = np.abs(got - want).max()
         assert errs[precision] <= bound, (precision, errs[precision])
     assert errs["double"] <= errs["accurate"]
+
+
+# --- B1 / B3: the TF32 layout and its tiers --------------------------------
+
+# (computer kwargs, K, dft, nb): dft 512 (the Nyquist cosine in the DC slot),
+# dft 384 (3 whole chunks) and an odd dft 401 (no Nyquist bin: 201 bins, the
+# DC slot empty, the last chunk 9 bins)
+FLOAT_LAYOUTS = [
+    (dict(frame_length_ms=25), 400, 512, 256),
+    (dict(frame_length_ms=24, pad_to_nearest_power_of_two=False), 384, 384, 192),
+    (dict(frame_length_ms=25.1, pad_to_nearest_power_of_two=False), 401, 401, 201),
+]
+
+
+def _float_dense(packed, steps):
+    """The packed float layout back to dense ``(2, steps * 8, chunks *
+    128)``: [hi, lo][k][column], columns (cos, mixed) by bin."""
+    chunks = packed.shape[0]
+    return packed.permute(2, 1, 4, 6, 0, 3, 5).reshape(2, steps * 8, chunks * 128)
+
+
+@pytest.mark.parametrize(
+    "kw,K_,dft,nb", FLOAT_LAYOUTS, ids=[f"dft{d}" for _, _, d, _ in FLOAT_LAYOUTS]
+)
+def test_pack_float_layout_decodes_to_dft(kw, K_, dft, nb):
+    """The TF32 layout the float kernel reads: (chunks, steps, 2, 16, 2, 8,
+    4) core matrices of hi and lo, hi + lo within the split's bound of the
+    fp32 matrices, the Nyquist cosine in the DC slot (even dft only), zero
+    past K and past nb; and the filter spans bound the nonzero weights."""
+    tc = STFTFrameComputer(dict(BANK), device="cpu", **kw)
+    assert (tc.frame_length, tc.dft_size) == (K_, dft)
+    cos, sin, w = tc.params["dft_cos"], tc.params["dft_sin"], tc.params["weights"]
+    half = dft // 2 + 1
+    packed, got_nb, steps = K._pack_float(cos, sin)
+    chunks = -(-nb // 64)
+    assert got_nb == nb and steps == -(-K_ // 16) * 2
+    assert packed.dtype == torch.float32
+    assert tuple(packed.shape) == (chunks, steps, 2, 16, 2, 8, 4)
+    hi, lo = _float_dense(packed, steps)
+    for part in (hi, lo):  # TF32: the 13 low mantissa bits are zero
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    pairs = (hi.double() + lo.double()).reshape(steps * 8, chunks * 64, 2)
+    real, mixed = pairs[..., 0], pairs[..., 1]
+    assert not real[K_:].any() and not mixed[K_:].any()
+    assert not real[:, nb:].any() and not mixed[:, nb:].any()
+    dc = cos[:, nb:] if dft % 2 == 0 else torch.zeros(K_, 1)
+    assert (nb == half - 1) == (dft % 2 == 0)
+    want = torch.cat([cos[:, :nb], dc, sin[:, 1:nb]], dim=1).double()
+    got = torch.cat([real[:K_, :nb], mixed[:K_, :nb]], dim=1)
+    # |x - hi - lo| <= 2^-11 |x - hi| <= 2^-22 |x|
+    assert ((got - want).abs() <= 2.0**-22 * want.abs()).all()
+    if dft % 2:
+        assert not mixed[:, 0].any()
+    spans = K._filter_spans(w)
+    for c, (first, last) in enumerate(spans.tolist()):
+        rows = np.flatnonzero(w[:, c].numpy())
+        assert (first, last) == (rows[0], rows[-1] + 1)
+
+
+def _emulate_float(frames, params, passes, *, use_log, use_power, include_energy, log_floor):
+    """The float kernel's arithmetic on the CPU: the packed DFT operand,
+    the frames split by the kernel's rounding, ``passes`` products (3:
+    lo*hi + hi*lo + hi*hi; 1: hi*hi) summed exactly and rounded to fp32
+    once, then the fp32 tail with the Nyquist bin from the DC slot."""
+    cos, sin, w = params["dft_cos"], params["dft_sin"], params["weights"]
+    packed, nb, steps = K._pack_float(cos, sin)
+    b_hi, b_lo = _float_dense(packed, steps).double()
+    x = torch.nn.functional.pad(frames, (0, steps * 8 - frames.shape[-1]))
+    a_hi = K._tf32(x)
+    a_lo = K._tf32(x - a_hi)
+    acc = a_hi.double() @ b_hi
+    if passes == 3:
+        acc = a_lo.double() @ b_hi + a_hi.double() @ b_lo + acc
+    pairs = acc.float().reshape(*acc.shape[:-1], -1, 2)[..., :nb, :]
+    re, mixed = pairs[..., 0], pairs[..., 1]
+    im = torch.cat([torch.zeros_like(mixed[..., :1]), mixed[..., 1:]], dim=-1)
+    power = re * re + im * im
+    spec = power if use_power else torch.sqrt(power)
+    nyq = mixed[..., :1] * mixed[..., :1] if use_power else mixed[..., :1].abs()
+    feats = spec @ w[:nb]
+    if nb < w.shape[0]:
+        feats = feats + nyq * w[nb]
+    if use_log:
+        feats = torch.log(torch.clamp_min(feats, log_floor))
+    if include_energy:
+        energy = torch.sum(frames * frames, dim=-1) / frames.shape[-1]
+        if not use_power:
+            energy = torch.sqrt(energy)
+        if use_log:
+            energy = torch.log(torch.clamp_min(energy, log_floor))
+        feats = torch.cat([energy[..., None], feats], dim=-1)
+    return feats
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("frame_length_ms", [25, 24.375], ids=["main", "k390"])
+@pytest.mark.parametrize("include_energy,use_power,use_log", COMBOS, ids=COMBO_IDS)
+def test_float_tier_emulation_within_tolerance(
+    precision, frame_length_ms, include_energy, use_power, use_log
+):
+    """The float kernel's tiers emulated on the CPU from the packed
+    operands: 3 passes within the fp32 tier's TOL_FLOAT / RTOL_LINEAR of
+    the plain IEEE version, 1 pass (TF32) within TOL_DEFAULT."""
+    tc = STFTFrameComputer(
+        dict(BANK), device="cpu", frame_length_ms=frame_length_ms, use_power=use_power
+    )
+    x = torch.tensor(np.random.RandomState(75).randn(2, 4000).astype(np.float32))
+    padded = TF.pad_signal_full(x, tc.frame_length, tc._pad_left)
+    mf = TF.frame_count_np(4000, tc.frame_length, tc.frame_shift)
+    spec = dict(use_log=use_log, use_power=use_power, include_energy=include_energy, log_floor=1e-5)
+    want = K.stft_feats_rows_plain(
+        padded, tc.params, num_frames=mf, frame_length=tc.frame_length,
+        frame_shift=tc.frame_shift, **spec,
+    )
+    frames = TF.frame_padded(padded, mf, tc.frame_length, tc.frame_shift)
+    got = _emulate_float(frames, tc.params, K._float_passes(precision), **spec)
+    if precision == "highest":
+        _close(got.numpy(), want.numpy(), TOL_FLOAT, use_log)
+    else:
+        rtol = 0.0 if use_log else TOL_DEFAULT
+        assert np.allclose(got.numpy(), want.numpy(), rtol=rtol, atol=TOL_DEFAULT)
+
+
+def test_float_tiers_pick_passes():
+    """'highest' (and None) and 'high' run three split passes, 'default'
+    one TF32 pass; a digit tier is no float tier."""
+    assert [K._float_passes(p) for p in (None, "highest", "high", "default")] == [3, 3, 3, 1]
+    with pytest.raises(ValueError):
+        K._float_passes("double")
+
+
+def test_packed_float_built_once_per_dft_cos():
+    """The float wrappers pack a dft_cos tensor once and pack again when it
+    or its dft_sin changes in place."""
+    tc = STFTFrameComputer(dict(BANK), device="cpu")
+    cos, sin = tc.params["dft_cos"], tc.params["dft_sin"]
+    first = K._packed_float(cos, sin)
+    assert K._packed_float(cos, sin) is first
+    sin.add_(0)
+    again = K._packed_float(cos, sin)
+    assert again is not first and torch.equal(again[0], first[0])
+    slot = id(cos)
+    del tc, cos, sin
+    assert slot not in K._PACKED
 
