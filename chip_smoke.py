@@ -181,6 +181,15 @@ def main():
         return [(passes * 2 * frames * fl * 2 * nb_f, PEAK_TF32_FLOPS),
                 (2 * frames * filter_terms(params), PEAK_FP32_FLOPS)]
 
+    def digit_tail_terms(params, prefix):
+        """Weight terms of a digit kernel's filter sums a frame: w_hi and
+        w_lo over each filter's span of nonzero rows of either (the terms
+        outside are exact zeros, which it skips) and the rank-1 Nyquist
+        term."""
+        spans = K._filter_spans(params[prefix + "w_hi"], params[prefix + "w_lo"])
+        rows = (spans[:, 1] - spans[:, 0]).clamp(min=0).sum().item()
+        return 2 * rows + nf
+
     def fma_bound_ms(frames):
         """The bound the fp32-FMA kernel was held to before: both DFT
         products and the filter product at the fp32 rate."""
@@ -250,13 +259,17 @@ def main():
             err=err, tol=TOL_INT8, ms=int8_ms[precision],
             ops=[
                 (2 * frames_total * fl * 2 * nb * n_pairs, PEAK_INT8_OPS),
-                (2 * frames_total * nb * nf * 2, PEAK_FP32_FLOPS),
+                (2 * frames_total * digit_tail_terms(p, "i8k_"), PEAK_FP32_FLOPS),
             ],
             nbytes=bytes_of(padded, got, *tail), source=INT8_SOURCE,
         )
         bound, _ = bound_ms(entry)
+        # the count before the tail went over the spans: w_hi and w_lo dense
+        dense, _ = bound_ms({**entry, "ops": [entry["ops"][0],
+                                              (2 * frames_total * nb * nf * 2, PEAK_FP32_FLOPS)]})
         print(f"stft_feats_int8 [{precision}]: {int8_ms[precision]:.3f} ms, {n_pairs} pairs, "
-              f"bound {bound:.3f} ms, {100 * bound / int8_ms[precision]:.1f}% of bound", flush=True)
+              f"bound {bound:.3f} ms (dense tail: {dense:.3f}), "
+              f"{100 * bound / int8_ms[precision]:.1f}% of bound", flush=True)
         if precision == "double":
             entry["plain_ms"] = cuda_ms(lambda: K.stft_feats_int8_plain(padded, p, **i8_kw), reps=3)
             entries["stft_feats_int8"] = entry
@@ -267,10 +280,13 @@ def main():
         check(e["err"] <= e["tol"], f"{name} disagrees with its plain version: {e['err']}")
 
     # 4. B4, the base-256 digit kernel, on the same padded rows: 'double'
-    # (the default 13 pairs) and 'accurate' (n_x 4, cutoff 3: 10 pairs)
+    # (the default 13 pairs) and 'accurate' (n_x 4, cutoff 3: 10 pairs);
+    # then on the digit adversary (pair sums past 2^23) at K 512 with the
+    # Hamming window
     double_ms = {}
     launches = {}
     tiers = {"double": {}, "accurate": dict(n_x=4, cutoff=3)}
+    adv_rows = K._digit_adversary_rows(BATCH, n).to(dev)
     for precision, sched in tiers.items():
         cd = computer(precision=precision)
         p = cd.params
@@ -281,24 +297,38 @@ def main():
         err = (got - want).abs().max().item()
         print(f"stft_feats_double [{precision}] vs plain: max abs {err:.3e}", flush=True)
         check(err <= TOL_INT8, f"stft_feats_double [{precision}] disagrees with its plain version: {err}")
+        ca = computer(precision=precision, frame_length_ms=32, window_function="hamming")
+        a_kw = dict(num_frames=F.frame_count_np(n, 512, ca.frame_shift), frame_length=512,
+                    frame_shift=ca.frame_shift, dft_size=ca.dft_size, **LOG_SPEC, **sched)
+        a_pad = F.pad_signal_full(adv_rows, 512, ca._pad_left)
+        a_err = (K.stft_feats_double(a_pad, ca.params, **a_kw)
+                 - K.stft_feats_double_plain(a_pad, ca.params, **a_kw)).abs().max().item()
+        print(f"stft_feats_double [{precision}] adversary K 512 vs plain: max abs {a_err:.3e}",
+              flush=True)
+        check(a_err <= TOL_INT8, f"stft_feats_double [{precision}] disagrees on the adversary: {a_err}")
+        del a_pad
         double_ms[precision] = cuda_ms(lambda: K.stft_feats_double(padded, p, **d_kw))
         plain_ms = cuda_ms(lambda: K.stft_feats_double_plain(padded, p, **d_kw), reps=3)
+        nb = p["pdk_mask"].shape[0]
+        n_pairs = len(K._double_pairs(p, sched.get("n_x"), sched.get("cutoff")))
+        dots = 2 * frames_total * fl * 2 * nb * n_pairs
+        tail = [p["pdk_" + k] for k in ("mats", "mixed_scale", "mask", "w_hi", "w_lo", "w_nyq")]
+        entry = dict(
+            replaces="speech_tpu/ops/pallas_stft.py:431 stft_feats_pallas_double (_double_rows_kernel :304)",
+            err=max(err, a_err), tol=TOL_INT8, ms=double_ms[precision], plain_ms=plain_ms,
+            ops=[
+                (dots, PEAK_BF16_FLOPS),  # the pair dots on the bf16 tensor cores
+                (2 * frames_total * digit_tail_terms(p, "pdk_"), PEAK_FP32_FLOPS),
+            ],
+            nbytes=bytes_of(padded, got, *tail), source=DOUBLE_SOURCE,
+        )
+        bound, _ = bound_ms(entry)
         print(f"stft_feats_double [{precision}]: {double_ms[precision]:.3f} ms, "
-              f"plain {plain_ms:.3f} ms", flush=True)
+              f"plain {plain_ms:.3f} ms, {n_pairs} pairs, bound {bound:.3f} ms "
+              f"({100 * bound / double_ms[precision]:.1f}%), the same dots on the CUDA "
+              f"cores' fp32 FMAs {dots / PEAK_FP32_FLOPS * 1e3:.3f} ms", flush=True)
         if precision == "double":
-            nb = p["pdk_mask"].shape[0]
-            n_pairs = len(K._double_pairs(p, None, None))
-            tail = [p["pdk_" + k] for k in ("mats", "mixed_scale", "mask", "w_hi", "w_lo", "w_nyq")]
-            entries["stft_feats_double"] = dict(
-                replaces="speech_tpu/ops/pallas_stft.py:431 stft_feats_pallas_double (_double_rows_kernel :304)",
-                err=err, tol=TOL_INT8, ms=double_ms[precision], plain_ms=plain_ms,
-                ops=[
-                    (2 * frames_total * fl * 2 * nb * n_pairs, PEAK_BF16_FLOPS),
-                    # w_hi and w_lo: (nb x C) each; w_nyq: rank 1 (C)
-                    (2 * frames_total * nb * nf * 2 + 2 * frames_total * nf, PEAK_FP32_FLOPS),
-                ],
-                nbytes=bytes_of(padded, got, *tail), source=DOUBLE_SOURCE,
-            )
+            entries["stft_feats_double"] = entry
         K.reset_launch_counts()
         K.stft_feats_double(padded, p, **d_kw)
         torch.cuda.synchronize()

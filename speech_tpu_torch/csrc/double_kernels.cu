@@ -1,12 +1,12 @@
 // Fused base-256 digit-tier STFT -> filter-bank feature kernel for Hopper
-// (sm_90a), with a plain C launcher (stk_double_feats) that the Python
-// wrapper stft_feats_double in speech_tpu_torch/ops/stft_kernels.py loads
-// through ctypes.
+// (sm_90a) on the bf16 tensor cores, with a plain C launcher
+// (stk_double_feats) that the Python wrapper stft_feats_double in
+// speech_tpu_torch/ops/stft_kernels.py loads through ctypes.
 //
 // Replaces speech_tpu/ops/pallas_stft.py stft_feats_pallas_double
 // (_double_rows_kernel): per frame a power-of-two scale from the exponent
 // bits ((bits >> 23) + 2) << 23 of max(max|x|, 1e-30) (the margin bit keeps
-// |x digit| <= 128), n_x base-256 digit planes (round half to even), one
+// |x digit| <= 128), base-256 x digit planes (round half to even), one
 // integer dot per kept digit pair (i, j) against the M digit planes
 // (|M digit| <= 256, no margin), each term g * 256^-(i+j+2) added into one
 // fp32 accumulator in the pair schedule's order, then the tail: rescale,
@@ -14,31 +14,57 @@
 // hi/lo-split filter weights plus the rank-1 Nyquist term, log floor and
 // energy.
 //
-// Exactness: digit products are integers below 2^15 and a frame's sum
-// stays below K * 2^15 <= 2^24 (the wrapper gates K <= 512), so fp32 FMA
-// on integer-valued floats is exact in any order.  Every other step that
-// the reference rounds is an explicitly rounded op (__fmul_rn, __fadd_rn,
-// __fsub_rn), so nvcc contracts nothing.
+// Exactness: every digit is an integer that bf16 holds exactly, so each pair
+// dot runs as bf16 tensor-core products (wgmma .f32.bf16.bf16) summed in
+// fp32 by the tensor cores over all of K.  Products are below 2^15 and a
+// frame's partial sums stay at or below K * 2^15 <= 2^24 (the wrapper gates
+// K <= 512, and so does the launcher).  That the tensor cores' own fp32
+// accumulation (not IEEE: it aligns addends and truncates) sums such
+// integers exactly in any order was measured, not assumed:
+// tools/torch_wgmma_probe.py compares wgmma (A from shared memory or from
+// registers) and mma.sync bit for bit with int64 sums, with sums up to 2^24.
+// Pairs are never merged into one longer dot (two pairs could pass 2^24).
+// Every other step the reference rounds is an explicitly rounded fp32 op
+// (__fmul_rn, __fadd_rn, __fsub_rn, __fmaf_rn), so each frame's accumulator
+// has the plain version's fp32 bits; the filter sums skip only exact zeros.
 //
-// Bound on an H100: the pair dots, 2 * frames * K * 2nb * pairs operations;
-// against the dense bf16 tensor-core rate (the digits are exact in bf16)
-// that is about 1 ms at 128 x 15 s.  This kernel runs the dots on the CUDA
-// cores (fp32 FMA, 67 TFLOP/s: some 15 ms for the same work) as an
-// SGEMM-like tiling.  One block of 256 threads per (signal row, tile of kT
-// frames) walks the bins in chunks of kBins: a chunk's kCT = 2 * kBins
-// columns are the real and the mixed (imaginary, Nyquist in the DC slot)
-// columns of the same bins, so the chunk ends in finished power spectra
-// and its share of the filter product, and the block keeps only a chunk's
-// spectrum.  For each chunk and each pair the M digit plane streams
-// through shared memory in k-tiles of kKT rows (double buffered, one
-// barrier per tile) beside the matching x digit tile, recomputed from the
-// signal: frames and digit planes never reach device memory.  A tile's
-// loads are issued before the FMAs of the tile before it and its digits
-// computed after them, so the loads' latency hides behind the FMAs.  Each
-// thread accumulates an 8 frame x 4 column register tile; its operands
-// come as 16-byte shared-memory reads that a warp serves in one wavefront
-// each (3 per 32 FMAs).  Whether the tensor cores accumulate these
-// integer products exactly in fp32 is left for a later change.
+// Bound on an H100: the pair dots, 2 * frames * K * 2nb operations a pair
+// against the 989 TFLOP/s dense bf16 rate (about 1 ms for 'double' at 128 x
+// 15 s), plus the fp32 filter tail over each filter's span.  The block
+//   1. takes 128 frames of one signal row (64 a consumer warpgroup), so each
+//      M plane it streams from L2 (13 pairs x K x 2nb x 2 bytes, 5.3 MB at K
+//      400 and dft 512) serves 128 frames; stages the span of samples
+//      [f0 * shift, f0 * shift + 127 * shift + 16 * steps) in shared memory
+//      by cp.async (where the span does not fit, every read goes to device
+//      memory instead: kSpan = false);
+//   2. walks the bins in chunks of 64: chunk c's 128 columns are the real
+//      and mixed columns of bins [64c, 64c + 64) side by side, so that one
+//      thread's accumulator pair is one bin's;
+//   3. has one thread of a producer warpgroup (which gives most of its
+//      registers to the consumers by setmaxnreg) stream, for each chunk and
+//      pair in order, the pair's M plane (bf16, packed by _pack_double in
+//      k-steps of 16 rows x 128 columns as K-major core matrices) through a
+//      ring of 3 to 8 stages of 8 KB by bulk (TMA) copies, signalled by full
+//      / empty mbarriers;
+//   4. runs each k-step on the tensor cores: each warpgroup issues wgmma
+//      m64n128k16 with its x digits in registers, computed from the staged
+//      samples (i + 1 rounds for plane i, each an fma, an fma and an add;
+//      the bf16 bits are the upper half of the exact fp32 digit); a chunk is
+//      one flat sequence of stages over all pairs, three register sets in
+//      turn, so two stages of products stay queued while the next stage's
+//      digits are made (its samples loaded a stage ahead); each pair's
+//      first product starts its sum afresh.  The digits are most of the
+//      time: about 7 ALU operations for each A element against 256
+//      tensor-core operations (tools/torch_double_variants.py times the
+//      kernel without them);
+//   5. folds each pair's exact sum into the fp32 accumulator (weight, one
+//      __fadd_rn) when its last product is done;
+//   6. ends each chunk with its spectrum in shared memory; warp w adds the
+//      chunk's w_hi and w_lo products for filters w, w + 8, ..., lane l for
+//      frames 4l .. 4l + 3, over the filter's span of nonzero rows only;
+//      the last chunk adds the Nyquist term and the log floor, and the block
+//      writes its features, energy first, by coalesced stores.  No atomics
+//      and a fixed order: the result is deterministic.
 //
 // The launcher returns cudaGetLastError() after the launch; nothing here
 // allocates or synchronises.  Build:
@@ -46,21 +72,34 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kT = 64;         // frames per block
-constexpr int kThreads = 256;  // 2 x 4 warps of 32 frames x 32 columns
-constexpr int kBins = 64;      // bins per chunk
-constexpr int kCT = 2 * kBins; // columns per chunk: real | mixed
-constexpr int kKT = 16;        // k rows per tile
-constexpr int kXS = kT + 4;    // x tile row stride (16-byte rows, fewer conflicts)
+constexpr int kConsumers = 256;                  // 2 warpgroups of products
+constexpr int kThreads = kConsumers + 128;       // and a producer warpgroup (one thread works)
+constexpr int kConsumerRegs = 232;               // registers a consumer thread: setmaxnreg
+constexpr int kProducerRegs = 40;                // ... and a producer thread
+constexpr int kM = 128;                          // frames per block: 64 a warpgroup
+constexpr int kBins = 64;                        // bins per chunk
+constexpr int kCols = 2 * kBins;                 // chunk columns: (real, mixed) per bin
+constexpr int kStepK = 16;                       // k of one bf16 product
+constexpr int kCore = 128;                       // core matrix: 8 columns x 16 bytes
+constexpr int kStepBytes = kCols * kStepK * 2;   // one k-step of a chunk: 4096
+constexpr int kStageSteps = 2;                   // k-steps a ring stage
+constexpr int kSlotBytes = kStageSteps * kStepBytes;
+constexpr int kMaxStages = 8;
+constexpr int kMinStages = 3;                    // two stages in flight and one landing
+constexpr int kBarBytes = 128;                   // full and empty barriers
+constexpr int kSS = kM + 8;                      // spectrum row stride: conflict-free stores
+constexpr int kFT = 4;                           // frames of a lane's filter sums
+constexpr int kFS = kM + 4;                      // filter-sum row stride
 constexpr int kMaxPairs = 64;
 constexpr int kMaxXDigits = 8;
-constexpr int kMVec = kKT * kCT / 4 / kThreads;  // float4 of M per thread
-constexpr int kXDig = kKT * kT / kThreads;       // x digits per thread
-static_assert(kMVec * 4 * kThreads == kKT * kCT, "M tile split");
-static_assert(kXDig * kThreads == kKT * kT, "x tile split");
+constexpr int kMaxK = 512;                       // exact sums: K * 2^15 <= 2^24
+constexpr float kRound = 12582912.f;             // 1.5 * 2^23
+static_assert(kM == 32 * kFT, "a warp's lanes take a filter's frames");
+static_assert(kBarBytes >= 2 * kMaxStages * 8, "barriers");
 
 struct Pairs {
   int n;
@@ -82,57 +121,236 @@ __device__ __forceinline__ float floor_log(float v, float log_floor) {
   return logf(fmaxf(v, log_floor));
 }
 
-// the staged tile of one (pair, k-tile) step, held in registers between
-// its loads and its store to shared memory: M digits, and the samples
-// whose x digits the store computes
-struct Tile {
-  float4 m[kMVec];
-  float x[kXDig];
-  int di;
-};
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__global__ void __launch_bounds__(kThreads, 2) double_feats_kernel(
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P, [%0], %1;\n"
+      "@!P bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// `bytes` more bytes are to land on `bar`, and this thread arrives on it
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// one bulk (TMA) copy of `bytes` contiguous bytes, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously; zeros where !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// barrier among the consumer warps only
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// shared-memory matrix descriptor, K-major without swizzle: the low word
+// holds the start address in 16-byte units and the 128 bytes between the two
+// core matrices along k; the high word the 256 bytes between 8-column groups.
+// Adding n to the low word moves the start by 16 n bytes.
+__device__ __forceinline__ uint32_t desc_lo(uint32_t addr) {
+  return ((addr & 0x3FFFF) >> 4) | ((kCore >> 4) << 16);
+}
+
+__device__ __forceinline__ uint64_t desc(uint32_t lo) {
+  return ((uint64_t)((2 * kCore) >> 4) << 32) | lo;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warp are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 128 f32, the warpgroup's fragment layout) = a * b (+ d when
+// `accumulate`): a (64 x 16 bf16) in registers, this thread's (row g, k 2t
+// and 2t + 1), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..), the lower k
+// in the low half; b (16 x 128 bf16) K-major in shared memory
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16][4], const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// shared memory of a block: the fixed part (barriers, ring, spectrum,
+// filter sums, per-frame values, pair table) before the sample buffer
+size_t double_fixed_bytes(int stages, int C) {
+  return kBarBytes + (size_t)stages * kSlotBytes +
+         sizeof(float) * ((size_t)kBins * kSS + 2 * (size_t)C * kFS + 3 * (size_t)kM) +
+         3 * sizeof(int) * kMaxPairs;
+}
+
+// Warpgroup 2 is the producer (its first thread works).  Warps 0-7 consume:
+// warpgroup wg takes frames [64 wg, 64 wg + 64) of the block.  kSpan: the
+// block's samples are staged in shared memory; else read from device
+// memory.  kPairs (with kSpan, for an even frame shift): the digit fragments
+// load their sample pairs 8 bytes at a time.
+template <bool kSpan, bool kPairs>
+__global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
     const float* __restrict__ x, long long row_stride, long long n_valid,
     int frame_shift, int num_frames, int K, int nb, int C,
-    const float* __restrict__ mats, Pairs pairs, float cos_scale,
-    const float* __restrict__ mscale, const float* __restrict__ mask,
+    const uint16_t* __restrict__ packed, int steps, const __grid_constant__ Pairs pairs,
+    float cos_scale, const float* __restrict__ mscale, const float* __restrict__ mask,
     const float* __restrict__ w_hi, const float* __restrict__ w_lo,
-    const float* __restrict__ w_nyq, float* __restrict__ out, int use_log,
-    int use_power, int energy, float log_floor) {
-  extern __shared__ __align__(16) float smem[];
-  const int nb2 = 2 * nb;
-  float* xt = smem;                     // [2][kKT][kXS]
-  float* mt = xt + 2 * kKT * kXS;       // [2][kKT][kCT]
-  float* pw = mt + 2 * kKT * kCT;       // [kT][kBins] the chunk's spectrum
-  float* fhi = pw + kT * kBins;         // [kT][C] filter sums, hi weights
-  float* flo = fhi + kT * C;            // [kT][C] lo weights
-  float* scl = flo + kT * C;            // [kT]
-  float* inv = scl + kT;                // [kT]
-  float* en = inv + kT;                 // [kT]
-  float* nyq = en + kT;                 // [kT]
-  int* pi = reinterpret_cast<int*>(nyq + kT);  // [kMaxPairs]
+    const float* __restrict__ w_nyq, const int* __restrict__ spans, float* __restrict__ out,
+    int use_log, int use_power, int energy, float log_floor, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [stages]: a stage landed
+  uint64_t* empty = full + kMaxStages;                 // [stages]: a slot is free
+  // [stages][kStageSteps][16][2][8][8]: the packed layout, copied as it is
+  unsigned char* ring = smem + kBarBytes;
+  float* spec = reinterpret_cast<float*>(ring + (size_t)stages * kSlotBytes);  // [kBins][kSS]
+  float* fhi = spec + kBins * kSS;  // [C][kFS]: w_hi sums
+  float* flo = fhi + C * kFS;       // [C][kFS]: w_lo sums
+  float* scl = flo + C * kFS;       // [kM]
+  float* en = scl + kM;             // [kM]
+  float* nyq = en + kM;             // [kM]
+  // the pair table, read once from the parameters: a dynamically indexed
+  // kernel parameter is a slow load
+  int* pi = reinterpret_cast<int*>(nyq + kM);  // [kMaxPairs]
   int* pj = pi + kMaxPairs;                    // [kMaxPairs]
+  float* pw = reinterpret_cast<float*>(pj + kMaxPairs);  // [kMaxPairs] 256^-(i+j+2)
+  float* xs = pw + kMaxPairs;                  // the sample buffer (kSpan)
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int b = blockIdx.y;
-  const int f0 = blockIdx.x * kT;
+  const int f0 = blockIdx.x * kM;
   const float* xrow = x + (long long)b * row_stride;
   const long long start = (long long)f0 * frame_shift;
+  const int nchunks = (nb + kBins - 1) / kBins;
+  const int npairs = pairs.n;
 
-  for (int p = tid; p < pairs.n; p += kThreads) {
-    pi[p] = pairs.i[p];
-    pj[p] = pairs.j[p];
+  if (tid < npairs) {
+    pi[tid] = pairs.i[tid];
+    pj[tid] = pairs.j[tid];
+    pw[tid] = ldexpf(1.0f, -8 * (pairs.i[tid] + pairs.j[tid] + 2));
   }
-  for (int i = tid; i < 2 * kT * C; i += kThreads) fhi[i] = 0.f;  // and flo
-  // per-frame peak, power-of-two scale and energy: one warp per frame
-  for (int t = warp; t < kT; t += kThreads / 32) {
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kConsumers / 32);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // the launch bound leaves 168 registers a thread; the producer
+    // warpgroup hands most of its share to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    // the producer: for each chunk, each pair's plane, its k-steps in order,
+    // a stage at a time; stage q goes into slot q mod stages once the slot's
+    // previous stage has been consumed
+    if (tid == kConsumers) {
+      int slot = 0, use = 0;
+      for (int chunk = 0; chunk < nchunks; ++chunk) {
+        for (int p = 0; p < npairs; ++p) {
+          const uint16_t* src =
+              packed + ((long long)pj[p] * nchunks + chunk) * steps * (kStepBytes / 2);
+          for (int q = 0; q < steps; q += kStageSteps) {
+            if (use > 0) mbar_wait(empty + slot, (use - 1) & 1);
+            mbar_expect(full + slot, kSlotBytes);
+            bulk_copy(ring + slot * kSlotBytes, src + (long long)q * (kStepBytes / 2), kSlotBytes,
+                      full + slot);
+            if (++slot == stages) {
+              slot = 0;
+              ++use;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+  // the samples, staged while the producer's first copies are in flight; a
+  // sample past n_valid reads as zero
+  if constexpr (kSpan) {
+    const int n = (kM - 1) * frame_shift + steps * kStepK;
+    for (int i = tid; i < n; i += kConsumers) {
+      const long long p = start + i;
+      cp_async4(xs + i, p < n_valid ? xrow + p : xrow, p < n_valid);
+    }
+    cp_async_wait_all();
+    consumer_sync();
+  }
+  // sample i of the block's span, i = t * frame_shift + k for frame t
+  auto sample_at = [&](int i) -> float {
+    if constexpr (kSpan) return xs[i];
+    const long long p = start + i;
+    return p < n_valid ? __ldg(xrow + p) : 0.f;
+  };
+  auto sample = [&](int t, int k) { return sample_at(t * frame_shift + k); };
+
+  // per-frame peak, power-of-two scale and energy: one warp a frame
+  for (int t = warp; t < kM; t += kConsumers / 32) {
     float m = 0.f, s = 0.f;
-    const long long p0 = start + (long long)t * frame_shift;
     for (int k = lane; k < K; k += 32) {
-      const long long p = p0 + k;
-      const float v = p < n_valid ? __ldg(xrow + p) : 0.f;
+      const float v = sample(t, k);
       m = fmaxf(m, fabsf(v));
       s = fmaf(v, v, s);
     }
@@ -140,213 +358,284 @@ __global__ void __launch_bounds__(kThreads, 2) double_feats_kernel(
     s = warp_sum(s);
     if (lane == 0) {
       const int bits = __float_as_int(fmaxf(m, 1e-30f));
-      const float sc = __int_as_float(((bits >> 23) + 2) << 23);
-      scl[t] = sc;
-      inv[t] = 1.0f / sc;  // a power of two: exact
+      scl[t] = __int_as_float(((bits >> 23) + 2) << 23);
       en[t] = s;
     }
   }
-  __syncthreads();
+  consumer_sync();
 
-  // thread tile: frames fr0 + {0..3, 16..19}, columns cc0 + {0..3}; warps
-  // with wc < 2 hold real columns, the others mixed ones
-  const int wr = warp >> 2, wc = warp & 3;
-  const int fr0 = wr * 32 + (lane >> 3) * 4;
-  const int cc0 = wc * 32 + (lane & 7) * 4;
-  const int nkt = (K + kKT - 1) / kKT;
-  const int steps = pairs.n * nkt;
-  const int nchunks = (nb + kBins - 1) / kBins;
-  const bool vec_m = (nb & 3) == 0;  // 16-byte aligned M rows and halves
+  // this thread's fragments: frames r0 = 64 wg + 16 (warp % 4) + g and r0 +
+  // 8; accumulator columns 8 nt + 2 t (+1), that is bin 4 nt + t's (real,
+  // mixed)
+  const int g8 = lane >> 2;
+  const int tig = lane & 3;
+  const int r0 = 64 * (warp >> 2) + 16 * (warp & 3) + g8;
+  // 256 / scale of the two frames: powers of two, so x * sc is exact
+  const float sc0 = 256.f / scl[r0];
+  const float sc1 = 256.f / scl[r0 + 8];
+  const int base0 = r0 * frame_shift + 2 * tig;  // sample (r0, 2t) of the frame tile
+  const int base1 = base0 + 8 * frame_shift;     // (r0 + 8, 2t)
+  const uint32_t b_base = desc_lo(smem_addr(ring));
 
-  // global column of local column l of the chunk at bin j0 (-1: past nb)
-  auto column = [&](int j0, int l) {
-    const int bin = j0 + (l & (kBins - 1));
-    return bin < nb ? (l < kBins ? bin : nb + bin) : -1;
-  };
-  auto fetch = [&](int pr, int kt, int j0, Tile& tile) {
-    const int k0 = kt * kKT;
-    const float* mj = mats + (long long)pj[pr] * K * nb2;
+  // The A fragments of the kStageSteps k-steps from k-step u0 of x digit
+  // plane di: k-step u takes samples (r0, k), (r0, k + 1), (r0 + 8, k), (r0 +
+  // 8, k + 1), then the same at k + 8, with k = 16 u + 2 t.  Digits past K
+  // are zero (their M rows are zero too).  d = round(x * sc): 1.5 * 2^23
+  // added to |x * sc| <= 128 leaves no fraction bits (round half to even, as
+  // jnp.round); each further plane keeps x * sc - d (exact) and scales it by
+  // 256.  All 8 kStageSteps elements go through each round together.
+  constexpr int kE = 8 * kStageSteps;
+  auto load = [&](int u0, float (&x)[kE]) {
 #pragma unroll
-    for (int r = 0; r < kMVec; ++r) {
-      const int q = tid + r * kThreads;
-      const int kk = q / (kCT / 4);
-      const int l = (q % (kCT / 4)) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + kk < K) {
-        const float* row = mj + (long long)(k0 + kk) * nb2;
-        const int col = column(j0, l);
-        if (vec_m && col >= 0) {
-          v = __ldg(reinterpret_cast<const float4*>(row + col));
+    for (int u = 0; u < kStageSteps; ++u)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {  // (r0, k), (r0 + 8, k), (r0, k + 8), (r0 + 8, k + 8)
+        const int i = (h & 1 ? base1 : base0) + (u0 + u) * kStepK + (h >> 1) * 8;
+        float* xe = x + 8 * u + 2 * h;
+        if constexpr (kPairs) {
+          // i is even: one 8-byte load
+          const float2 v = *reinterpret_cast<const float2*>(xs + i);
+          xe[0] = v.x;
+          xe[1] = v.y;
         } else {
-          float e[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int cu = column(j0, l + u);
-            e[u] = cu >= 0 ? __ldg(row + cu) : 0.f;
-          }
-          v = make_float4(e[0], e[1], e[2], e[3]);
+          xe[0] = sample_at(i);
+          xe[1] = sample_at(i + 1);
         }
       }
-      tile.m[r] = v;
-    }
-    tile.di = pi[pr];
-#pragma unroll
-    for (int r = 0; r < kXDig; ++r) {
-      const int e = tid + r * kThreads;
-      const int kk = e % kKT;
-      const long long p = start + (long long)(e / kKT) * frame_shift + k0 + kk;
-      tile.x[r] = (k0 + kk < K && p < n_valid) ? __ldg(xrow + p) : 0.f;
-    }
   };
-  auto store = [&](int buf, const Tile& tile) {
-    float* mb = mt + buf * kKT * kCT;
+  // the samples of the next stage's k-steps, loaded a stage ahead so that
+  // their latency hides behind the digits before them
+  float xq[kE];
+  load(0, xq);
+  auto digits = [&](int u0, int di, uint32_t (&a)[kStageSteps][4], int u0_next) {
+    float x[kE], d[kE];
 #pragma unroll
-    for (int r = 0; r < kMVec; ++r) {
-      const int q = tid + r * kThreads;
-      *reinterpret_cast<float4*>(mb + (q / (kCT / 4)) * kCT + (q % (kCT / 4)) * 4) =
-          tile.m[r];
-    }
-    float* xb = xt + buf * kKT * kXS;
+    for (int e = 0; e < kE; ++e) x[e] = xq[e];
+    load(u0_next, xq);
 #pragma unroll
-    for (int r = 0; r < kXDig; ++r) {
-      const int e = tid + r * kThreads;
-      float v = __fmul_rn(tile.x[r], inv[e / kKT]), d = 0.f;
-      for (int step = 0; step <= tile.di; ++step) {
-        const float vb = __fmul_rn(v, 256.f);
-        // round half to even, as jnp.round: adding 1.5 * 2^23 leaves no
-        // fraction bits (|vb| <= 128), a full-rate add where rintf is not
-        d = __fsub_rn(__fadd_rn(vb, 12582912.f), 12582912.f);
-        v = __fsub_rn(vb, d);
+    for (int e = 0; e < kE; ++e)
+      d[e] = __fsub_rn(__fmaf_rn(x[e], e & 2 ? sc1 : sc0, kRound), kRound);
+    if (di > 0) {
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        x[e] = __fmaf_rn(x[e], e & 2 ? sc1 : sc0, -d[e]);
+        d[e] = __fsub_rn(__fmaf_rn(x[e], 256.f, kRound), kRound);
       }
-      xb[(e % kKT) * kXS + e / kKT] = d;
+#pragma unroll 1
+      for (int r = 1; r < di; ++r) {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          x[e] = __fmaf_rn(x[e], 256.f, -d[e]);
+          d[e] = __fsub_rn(__fmaf_rn(x[e], 256.f, kRound), kRound);
+        }
+      }
     }
+    uint32_t bits[kE];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) bits[e] = __float_as_uint(d[e]);
+    if ((u0 + kStageSteps) * kStepK > K) {
+#pragma unroll
+      for (int e = 0; e < kE; ++e)
+        if ((u0 + e / 8) * kStepK + 2 * tig + (e & 1) + ((e >> 2) & 1) * 8 >= K) bits[e] = 0u;
+    }
+    // an integer of at most 8 bits: its bf16 is the upper half of its fp32
+#pragma unroll
+    for (int u = 0; u < kStageSteps; ++u)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        a[u][q] = __byte_perm(bits[8 * u + 2 * q], bits[8 * u + 2 * q + 1], 0x7632);
   };
 
+  // g: the tensor cores' exact sum of the current pair; acc: the fp32 sum
+  // of the weighted pair terms, in pair order
+  float g[16][4], acc[16][4];
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      g[nt][e] = 0.f;
+      acc[nt][e] = 0.f;
+    }
+  auto fold = [&](float w) {  // the pair's dot is complete: exact integers, weighted exactly
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = __fadd_rn(acc[nt][e], __fmul_rn(g[nt][e], w));
+  };
+
+  // A chunk is one flat sequence of ring stages, pair after pair (nst
+  // stages a pair).  Stage s issues its products from register set s mod 3
+  // and, once stage s - 2 is done, puts the digits of stage s + 1 into that
+  // stage's set: two stages of products stay queued on the tensor cores
+  // while the digits are made, and every stage's digits are ready when it
+  // issues.  A pair's first stage first drains its predecessor and folds it.
+  const int nst = steps / kStageSteps;
+  const int nstages = npairs * nst;
+  int slot = 0, use = 0;             // ring slot and its use of the next stage
+  int prev1 = -1, prev2 = -1;        // the slots of the last two stages
+  int ip = 0, iq = 0;                // the pair and stage of the next issue
+  int pp = 0, pq = 0;                // ... and of the next digits
+  auto prep = [&](uint32_t (&a)[kStageSteps][4]) {
+    const int di = pi[pp];
+    const int u0 = pq * kStageSteps;
+    if (++pq == nst) {
+      pq = 0;
+      ++pp;
+    }
+    digits(u0, di, a, pq * kStageSteps);
+  };
+  auto step = [&](bool more, uint32_t (&cur)[kStageSteps][4], uint32_t (&nxt)[kStageSteps][4]) {
+    if (iq == 0 && ip > 0) {
+      wgmma_wait<0>();
+      fold(pw[ip - 1]);
+    }
+    mbar_wait(full + slot, use & 1);
+    const uint32_t b_slot = b_base + ((slot * kSlotBytes) >> 4);
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < kStageSteps; ++u)
+      wgmma_bf16(g, cur[u], desc(b_slot + ((u * kStepBytes) >> 4)), iq + u > 0);
+    // the stage before the previous one is done (the last two may still
+    // run): its slot and its register set are free
+    wgmma_commit();
+    wgmma_wait<2>();
+    if (prev2 >= 0 && lane == 0) mbar_arrive(empty + prev2);
+    prev2 = prev1;
+    prev1 = slot;
+    if (++slot == stages) {
+      slot = 0;
+      ++use;
+    }
+    if (++iq == nst) {
+      iq = 0;
+      ++ip;
+    }
+    if (more) prep(nxt);
+  };
+
+  uint32_t a0[kStageSteps][4], a1[kStageSteps][4], a2[kStageSteps][4];
   for (int chunk = 0; chunk < nchunks; ++chunk) {
-    const int j0 = chunk * kBins;
-    float acc[8][4], g[8][4];
-#pragma unroll
-    for (int f = 0; f < 8; ++f)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc[f][c] = 0.f;
-        g[f][c] = 0.f;
-      }
-    Tile tile;
-    fetch(0, 0, j0, tile);
-    store(0, tile);
-    __syncthreads();
-    int pr = 0, kt = 0;  // the step being computed
-    for (int s = 0; s < steps; ++s) {
-      const int buf = s & 1;
-      const int kt_n = kt + 1 == nkt ? 0 : kt + 1;
-      const int pr_n = kt + 1 == nkt ? pr + 1 : pr;
-      if (s + 1 < steps) fetch(pr_n, kt_n, j0, tile);
-      const float* xb = xt + buf * kKT * kXS + fr0;
-      const float* mb = mt + buf * kKT * kCT + cc0;
-#pragma unroll
-      for (int kk = 0; kk < kKT; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(xb + kk * kXS);
-        const float4 a1 = *reinterpret_cast<const float4*>(xb + kk * kXS + 16);
-        const float4 b0 = *reinterpret_cast<const float4*>(mb + kk * kCT);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bw[4] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-        for (int f = 0; f < 8; ++f)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) g[f][c] = fmaf(a[f], bw[c], g[f][c]);
-      }
-      if (kt + 1 == nkt) {  // the pair's dot is complete: exact integers
-        const float w = ldexpf(1.0f, -8 * (pi[pr] + pj[pr] + 2));
-#pragma unroll
-        for (int f = 0; f < 8; ++f)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            acc[f][c] = __fadd_rn(acc[f][c], __fmul_rn(g[f][c], w));
-            g[f][c] = 0.f;
-          }
-      }
-      if (s + 1 < steps) store(buf ^ 1, tile);
-      pr = pr_n;
-      kt = kt_n;
-      __syncthreads();
+    ip = iq = pp = pq = 0;
+    prep(a0);
+    int s = 0;
+    for (; s + 3 <= nstages; s += 3) {
+      step(true, a0, a1);
+      step(true, a1, a2);
+      step(s + 3 < nstages, a2, a0);
     }
+    if (s < nstages) step(s + 1 < nstages, a0, a1);
+    if (s + 1 < nstages) step(false, a1, a2);
+    wgmma_wait<0>();
+    fold(pw[npairs - 1]);
 
-    // real parts (warps with wc < 2) into pw, then the mixed columns
-    // finish each bin's power; local column cc0 + c is bin (cc0 + c) % kBins
+    // chunk done: its spectrum, once every consumer is done with the
+    // previous chunk's; the mixed column of bin 0 carries the Nyquist value
+    consumer_sync();
 #pragma unroll
-    for (int pass = 0; pass < 2; ++pass) {
-      if ((wc >> 1) == pass) {
+    for (int nt = 0; nt < 16; ++nt)
 #pragma unroll
-        for (int f = 0; f < 8; ++f) {
-          const int t = fr0 + (f & 3) + (f >> 2) * 16;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int l = (cc0 + c) & (kBins - 1);
-            const int j = j0 + l;
-            if (j >= nb) continue;
-            if (pass == 0) {
-              pw[t * kBins + l] = __fmul_rn(acc[f][c], __fmul_rn(scl[t], cos_scale));
-              continue;
-            }
-            const float mixed = __fmul_rn(acc[f][c], __fmul_rn(scl[t], mscale[j]));
-            const float im = __fmul_rn(mixed, mask[j]);
-            const float re = pw[t * kBins + l];
-            const float p = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
-            pw[t * kBins + l] = use_power ? p : sqrtf(p);
-            if (j == 0) {
-              const float nq = __fsub_rn(mixed, im);
-              nyq[t] = use_power ? __fmul_rn(nq, nq) : fabsf(nq);
-            }
+      for (int h = 0; h < 2; ++h) {
+        const int t = r0 + 8 * h;
+        const int jl = 4 * nt + tig;
+        const int j = chunk * kBins + jl;
+        if (j < nb) {
+          const float re = __fmul_rn(acc[nt][2 * h], __fmul_rn(scl[t], cos_scale));
+          const float mixed = __fmul_rn(acc[nt][2 * h + 1], __fmul_rn(scl[t], __ldg(mscale + j)));
+          const float im = __fmul_rn(mixed, __ldg(mask + j));
+          const float pwr = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+          if (j == 0) {
+            const float nq = __fsub_rn(mixed, im);
+            nyq[t] = use_power ? __fmul_rn(nq, nq) : fabsf(nq);
           }
+          spec[jl * kSS + t] = use_power ? pwr : sqrtf(pwr);
         }
+        acc[nt][2 * h] = 0.f;
+        acc[nt][2 * h + 1] = 0.f;
       }
-      __syncthreads();
-    }
-    // this chunk's share of the filter product
-    const int nbins = nb - j0 < kBins ? nb - j0 : kBins;
-    for (int idx = tid; idx < kT * C; idx += kThreads) {
-      const int t = idx / C;
-      const int c = idx - t * C;
-      const float* sp = pw + t * kBins;
-      float hi = fhi[idx], lo = flo[idx];
-      for (int l = 0; l < nbins; ++l) {
-        const float v = sp[l];
-        hi = fmaf(v, __ldg(w_hi + (long long)(j0 + l) * C + c), hi);
-        lo = fmaf(v, __ldg(w_lo + (long long)(j0 + l) * C + c), lo);
+    consumer_sync();
+
+    // the chunk's share of the filter sums, bins ascending over the filter's
+    // nonzero span within the chunk: warp w takes filters w, w + 8, ... and
+    // lane l frames 4l .. 4l + 3, so a warp walks one span in step, loads
+    // each weight once for all its lanes and reads the spectrum without
+    // bank conflicts; the sums wait in fhi / flo between chunks
+    const int j0 = chunk * kBins;
+    const bool last = chunk + 1 == nchunks;
+    for (int c = warp; c < C; c += kConsumers / 32) {
+      float4* fh = reinterpret_cast<float4*>(fhi + c * kFS) + lane;
+      float4* fl = reinterpret_cast<float4*>(flo + c * kFS) + lane;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 h = chunk ? *fh : zero, l = chunk ? *fl : zero;
+      const int ja = max(j0, __ldg(spans + 2 * c));
+      const int jb = min(min(j0 + kBins, nb), __ldg(spans + 2 * c + 1));
+      const float* sp = spec + lane * kFT;
+      for (int j = ja; j < jb; ++j) {
+        const float vh = __ldg(w_hi + (long long)j * C + c);
+        const float vl = __ldg(w_lo + (long long)j * C + c);
+        const float4 v = *reinterpret_cast<const float4*>(sp + (j - j0) * kSS);
+        h = make_float4(fmaf(v.x, vh, h.x), fmaf(v.y, vh, h.y), fmaf(v.z, vh, h.z),
+                        fmaf(v.w, vh, h.w));
+        l = make_float4(fmaf(v.x, vl, l.x), fmaf(v.y, vl, l.y), fmaf(v.z, vl, l.z),
+                        fmaf(v.w, vl, l.w));
       }
-      fhi[idx] = hi;
-      flo[idx] = lo;
+      if (last) {
+        // hi + lo, then the rank-1 Nyquist term (row 0 of w_nyq), then the
+        // log floor
+        const float wn = __ldg(w_nyq + c);
+        const float4 q = reinterpret_cast<const float4*>(nyq)[lane];
+        h = make_float4(__fadd_rn(__fadd_rn(h.x, l.x), __fmul_rn(q.x, wn)),
+                        __fadd_rn(__fadd_rn(h.y, l.y), __fmul_rn(q.y, wn)),
+                        __fadd_rn(__fadd_rn(h.z, l.z), __fmul_rn(q.z, wn)),
+                        __fadd_rn(__fadd_rn(h.w, l.w), __fmul_rn(q.w, wn)));
+        if (use_log)
+          h = make_float4(floor_log(h.x, log_floor), floor_log(h.y, log_floor),
+                          floor_log(h.z, log_floor), floor_log(h.w, log_floor));
+      } else {
+        *fl = l;
+      }
+      *fh = h;
     }
-    __syncthreads();
   }
 
+  // the block's features, frame by frame, by coalesced stores: the energy
+  // column, then the filters from fhi
+  consumer_sync();
   const int nc = C + energy;
-  for (int idx = tid; idx < kT * C; idx += kThreads) {
-    const int t = idx / C;
-    const int c = idx - t * C;
-    const int f = f0 + t;
-    if (f >= num_frames) continue;
-    float a = __fadd_rn(__fadd_rn(fhi[idx], flo[idx]), __fmul_rn(nyq[t], __ldg(w_nyq + c)));
-    if (use_log) a = floor_log(a, log_floor);
-    out[((long long)b * num_frames + f) * nc + energy + c] = a;
-  }
-  if (energy) {
-    for (int t = tid; t < kT; t += kThreads) {
-      const int f = f0 + t;
-      if (f >= num_frames) continue;
-      float e = en[t] / (float)K;
-      if (!use_power) e = sqrtf(e);
-      if (use_log) e = floor_log(e, log_floor);
-      out[((long long)b * num_frames + f) * nc] = e;
+  const int nf = min(kM, num_frames - f0);
+  float* ob = out + ((long long)b * num_frames + f0) * nc;
+  for (int i = tid; i < nf * nc; i += kConsumers) {
+    const int t = i / nc;
+    const int c = i - t * nc - energy;
+    float v;
+    if (c >= 0) {
+      v = fhi[c * kFS + t];
+    } else {
+      v = en[t] / (float)K;
+      if (!use_power) v = sqrtf(v);
+      if (use_log) v = floor_log(v, log_floor);
     }
+    ob[i] = v;
   }
 }
 
-size_t double_smem_bytes(int C) {
-  return sizeof(float) * ((size_t)2 * kKT * kXS + 2 * kKT * kCT + kT * kBins +
-                          2 * (size_t)kT * C + 4 * kT) +
-         sizeof(int) * 2 * kMaxPairs;
+template <bool kSpan, bool kPairs>
+cudaError_t launch_double(dim3 grid, size_t smem, cudaStream_t stream, const float* x,
+                          long long row_stride, long long n_valid, int frame_shift,
+                          int num_frames, int K, int nb, int C, const uint16_t* packed,
+                          int steps, const Pairs& pairs, float cos_scale, const float* mscale,
+                          const float* mask, const float* w_hi, const float* w_lo,
+                          const float* w_nyq, const int* spans, float* out, int use_log,
+                          int use_power, int energy, float log_floor, int stages) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(double_feats_kernel<kSpan, kPairs>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  double_feats_kernel<kSpan, kPairs><<<grid, kThreads, smem, stream>>>(
+      x, row_stride, n_valid, frame_shift, num_frames, K, nb, C, packed, steps, pairs,
+      cos_scale, mscale, mask, w_hi, w_lo, w_nyq, spans, out, use_log, use_power, energy,
+      log_floor, stages);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -355,53 +644,83 @@ extern "C" {
 
 // Digit-tier features of `batch` rows of fp32 samples.  Frame f of row b is
 // samples [f*frame_shift, f*frame_shift + K) of x + b*row_stride; samples at
-// or past n_valid read as zero.  mats is (n_m, K, 2*nb) fp32 integer digits,
-// 16-byte aligned; pair_i/pair_j list the n_pairs kept digit pairs in the
-// order their terms are added.  out is (batch, num_frames, C + energy) fp32.
-// Returns a cudaError_t; -1 when the tile does not fit in shared memory, -2
-// for a bad pair table or layout.
+// or past n_valid read as zero.  packed holds the n_m M digit planes as bf16
+// (n_m, chunks, steps, 16, 2, 8, 8), 16-byte aligned: [plane][chunk c][k-step
+// u][column group][k half][column in group][k in half], chunk c's column 2i
+// the real and 2i + 1 the mixed column of bin 64c + i (zero past nb), k-step
+// u rows [16u, 16u + 16) (zero past K), steps = ceil(K / 16) rounded up to
+// even.  pair_i/pair_j list the n_pairs kept digit pairs in the order their
+// terms are added.  spans (C x 2 int32) bound each filter's nonzero w_hi /
+// w_lo rows as [first, last + 1).  out is (batch, num_frames, C + energy)
+// fp32.  Returns a cudaError_t; -1 when the tile does not fit in shared
+// memory (two sums of 128 frames a filter beside a ring of 3 stages: at most
+// 161 filters in the H100's 227 KB), -2 for a bad pair table, K above 512 or
+// a bad layout.
 int stk_double_feats(const float* x, long long batch, long long row_stride,
-                     long long n_valid, int frame_shift, int num_frames, int K,
-                     int nb, int C, const float* mats, int n_m, int n_pairs,
-                     const int* pair_i, const int* pair_j, float cos_scale,
-                     const float* mscale, const float* mask, const float* w_hi,
-                     const float* w_lo, const float* w_nyq, float* out,
-                     int use_log, int use_power, int energy, float log_floor,
-                     void* stream) {
-  if (n_pairs < 1 || n_pairs > kMaxPairs || reinterpret_cast<size_t>(mats) % 16)
+                     long long n_valid, int frame_shift, int num_frames, int K, int nb,
+                     int C, const uint16_t* packed, int n_m, int n_pairs, const int* pair_i,
+                     const int* pair_j, float cos_scale, const float* mscale,
+                     const float* mask, const float* w_hi, const float* w_lo,
+                     const float* w_nyq, const int* spans, float* out, int use_log,
+                     int use_power, int energy, float log_floor, void* stream) {
+  if (n_pairs < 1 || n_pairs > kMaxPairs || K < 1 || K > kMaxK || nb < 1 || C < 1 ||
+      frame_shift < 1 || reinterpret_cast<size_t>(packed) % 16)
     return -2;
-  Pairs pairs;
+  Pairs pairs = {};
   pairs.n = n_pairs;
   for (int p = 0; p < n_pairs; ++p) {
-    if (pair_i[p] < 0 || pair_i[p] >= kMaxXDigits || pair_j[p] < 0 ||
-        pair_j[p] >= n_m)
+    if (pair_i[p] < 0 || pair_i[p] >= kMaxXDigits || pair_j[p] < 0 || pair_j[p] >= n_m)
       return -2;
     pairs.i[p] = pair_i[p];
     pairs.j[p] = pair_j[p];
   }
+  const int steps = ((K + kStepK - 1) / kStepK + kStageSteps - 1) / kStageSteps * kStageSteps;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = double_smem_bytes(C);
-  if (smem > (size_t)optin) return -1;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(double_feats_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  // the span of samples with the deepest ring that fits; else samples from
+  // device memory, with the deepest ring that fits.  The ring needs at least
+  // kMinStages: a consumer frees stage s - 2 only in step s, after stage s
+  // has landed, so the producer must be able to fill stage s while stages
+  // s - 2 and s - 1 still hold their slots.
+  const long long span_n = (long long)(kM - 1) * frame_shift + (long long)steps * kStepK;
+  const long long span_bytes = sizeof(float) * span_n;
+  size_t smem = 0;
+  int stages = 0;
+  bool span = false;
+  for (int s = kMaxStages; s >= kMinStages && !smem; --s) {
+    const size_t need = double_fixed_bytes(s, C) + (size_t)span_bytes;
+    if (span_n < (1LL << 30) && need <= (size_t)optin) {
+      smem = need;
+      stages = s;
+      span = true;
+    }
   }
-  dim3 grid((num_frames + kT - 1) / kT, (unsigned)batch);
-  double_feats_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, row_stride, n_valid, frame_shift, num_frames, K, nb, C, mats, pairs,
-      cos_scale, mscale, mask, w_hi, w_lo, w_nyq, out, use_log, use_power, energy,
-      log_floor);
-  return (int)cudaGetLastError();
+  for (int s = kMaxStages; s >= kMinStages && !smem; --s) {
+    if (double_fixed_bytes(s, C) <= (size_t)optin) {
+      smem = double_fixed_bytes(s, C);
+      stages = s;
+    }
+  }
+  if (!smem) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid((num_frames + kM - 1) / kM, (unsigned)batch);
+#define STK_DOUBLE(SPAN, PAIRS)                                                               \
+  launch_double<SPAN, PAIRS>(grid, smem, st, x, row_stride, n_valid, frame_shift, num_frames, K, \
+                             nb, C, packed, steps, pairs, cos_scale, mscale, mask, w_hi, w_lo,  \
+                             w_nyq, spans, out, use_log, use_power, energy, log_floor, stages)
+  // an even shift puts every fragment's sample pairs at even offsets
+  cudaError_t rc = !span ? STK_DOUBLE(false, false)
+                   : frame_shift % 2 ? STK_DOUBLE(true, false) : STK_DOUBLE(true, true);
+#undef STK_DOUBLE
+  return (int)rc;
 }
 
 const char* stk_error_string(int code) {
   if (code == -1) return "the frame tile does not fit in shared memory";
-  if (code == -2) return "bad digit pair table or layout";
+  if (code == -2) return "bad digit pair table, K above 512 or a bad layout";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -13,8 +13,9 @@ The counterpart of :mod:`speech_tpu.ops.pallas_stft`:
   on the int8 tensor cores (``csrc/int8_kernels.cu``).
 - :func:`stft_feats_double` replaces ``stft_feats_pallas_double``
   (``_double_rows_kernel``): the base-256 digit kernel, one dot per digit
-  pair (``csrc/double_kernels.cu``).  No computer route runs it, as in the
-  JAX package; it is public API on the ``pdk_*`` params.
+  pair, on the bf16 tensor cores (``csrc/double_kernels.cu``).  No
+  computer route runs it, as in the JAX package; it is public API on the
+  ``pdk_*`` params.
 
 Every wrapper casts its inputs as the JAX function does, checks device,
 dtype, shape and contiguity, and then runs its plain version for CPU
@@ -132,7 +133,7 @@ _SIGNATURES = {
         ctypes.c_int,  # K
         ctypes.c_int,  # nb
         ctypes.c_int,  # C
-        ctypes.c_void_p,  # mats
+        ctypes.c_void_p,  # packed
         ctypes.c_int,  # n_m
         ctypes.c_int,  # n_pairs
         _c_int_p,  # pair_i
@@ -143,6 +144,7 @@ _SIGNATURES = {
         ctypes.c_void_p,  # w_hi
         ctypes.c_void_p,  # w_lo
         ctypes.c_void_p,  # w_nyq
+        ctypes.c_void_p,  # spans
         ctypes.c_void_p,  # out
         ctypes.c_int,  # use_log
         ctypes.c_int,  # use_power
@@ -227,7 +229,7 @@ def _filter_spans(w_hi, w_lo=None):
     return torch.stack([first, last], dim=1).to(torch.int32).contiguous()
 
 
-_PACKED = {}  # id(gmats or dft_cos) -> (weakref to it, key, packed layout)
+_PACKED = {}  # id(gmats, dft_cos or pdk_mats) -> (weakref to it, key, packed layout)
 _SPANS = {}  # id(w_hi or weights) -> (weakref to it, key, filter spans)
 
 
@@ -242,6 +244,15 @@ def _cached(cache, tensor, key, build):
     value = build()
     cache[slot] = (weakref.ref(tensor, lambda r: cache.pop(slot, None)), key, value)
     return value
+
+
+def _digit_spans(w_hi, w_lo):
+    """:func:`_filter_spans` of a digit layout's split weights, once per
+    w_hi tensor (same version, same w_lo at the same version)."""
+    return _cached(
+        _SPANS, w_hi, (w_hi._version, id(w_lo), w_lo._version),
+        lambda: _filter_spans(w_hi, w_lo),
+    )
 
 
 # --- B1 / B3: the fused float pipeline ---------------------------------------
@@ -760,10 +771,7 @@ def stft_feats_int8(
         gmats, params["i8k_offsets"], frame_length
     )
     w_hi, w_lo = tail["w_hi"], tail["w_lo"]
-    spans = _cached(
-        _SPANS, w_hi, (w_hi._version, id(w_lo), w_lo._version),
-        lambda: _filter_spans(w_hi, w_lo),
-    )
+    spans = _digit_spans(w_hi, w_lo)
     with torch.cuda.device(padded.device):
         _launch(
             "stk_int8_feats", "stft_feats_int8",
@@ -798,6 +806,67 @@ def padded_need(
     blocks = -(-num_frames // block_frames)
     seg_rows = -(-(block_frames + q_rows) // 8) * 8
     return (blocks * block_frames + (seg_rows - block_frames)) * frame_shift
+
+
+def _digit_adversary_rows(batch: int, n: int):
+    """float32 CPU rows ``(batch, n)`` whose frames drive the base-256 pair
+    sums toward their 2^24 limit, for the digit kernel's exactness checks.
+
+    Every sample is ``+-v`` with ``v = 127.5 / 256``: a frame's peak is
+    ``v``, its scale 1, and each sample's x digits are (128, -128, 0, 0)
+    (127.5 rounds half to even).  Rows ``0, 3, ...`` are ``+v``, rows ``1,
+    4, ...`` alternate in sign (the Nyquist cosine, in the mixed block's DC
+    slot) and rows ``2, 5, ...`` are ``-v``: the signs of the DC cosine
+    planes, so pairs (0, 0) and (1, 0) add ``128 |M digit|`` over the whole
+    frame.  With the Hamming window at K = 512 that is ``128 * 65,556 >
+    2^23`` (Hann's plane-0 digits are half as large)."""
+    v = 127.5 / 256
+    t = torch.arange(n)
+    patterns = torch.stack(
+        [torch.full((n,), v), v * (1 - 2 * (t % 2)).to(torch.float32), torch.full((n,), -v)]
+    )
+    return patterns[torch.arange(batch) % 3].to(torch.float32).contiguous()
+
+
+_D_STEP_K = 16  # k rows of one bf16 tensor-core product
+_D_STAGE_STEPS = 2  # k-steps a ring stage: the packing pads to a multiple
+_D_CHUNK_BINS = 64  # bins per column chunk
+
+
+def _pack_double(mats):
+    """The base-256 M digit planes packed for the bf16 tensor-core kernel.
+
+    Returns ``(packed, steps)``: ``packed`` is bfloat16 ``(n_m, chunks,
+    steps, 16, 2, 8, 8)`` with ``chunks = ceil(nb / 64)``: [plane][chunk]
+    [k-step][column group][k half][column in group][k in half], so each
+    k-step of a chunk is 16 x 2 core matrices (8 columns x 8 k, 16 bytes a
+    column) in the K-major layout the tensor cores read from shared memory.
+    Chunk ``c``'s column ``2i`` is the real (cos) column and ``2i + 1`` the
+    mixed column of bin ``64c + i`` (the Nyquist cosine at bin 0), as
+    ``pdk_mats`` holds them in ``[:nb]`` and ``[nb:]``; columns past ``nb``
+    are zero.  K-step ``u`` holds rows ``[16u, 16u + 16)``, zero past ``K``;
+    ``steps = ceil(K / 16)`` rounded up to even.  Every digit (at most 256
+    in magnitude) is exact in bf16."""
+    n_m, K, nb2 = mats.shape
+    nb = nb2 // 2
+    chunks = -(-nb // _D_CHUNK_BINS)
+    steps = -(-K // (_D_STEP_K * _D_STAGE_STEPS)) * _D_STAGE_STEPS
+    cols = torch.stack([mats[..., :nb], mats[..., nb:]], dim=-1).reshape(n_m, K, nb2)
+    cols = torch.nn.functional.pad(
+        cols, (0, 2 * (chunks * _D_CHUNK_BINS - nb), 0, steps * _D_STEP_K - K)
+    )
+    packed = (
+        cols.to(torch.bfloat16)
+        .reshape(n_m, steps, 2, 8, chunks, 2 * _D_CHUNK_BINS // 8, 8)
+        .permute(0, 4, 1, 5, 2, 6, 3)
+        .contiguous()
+    )
+    return packed, steps
+
+
+def _packed_double(mats):
+    """:func:`_pack_double`, once per pdk_mats tensor (same version)."""
+    return _cached(_PACKED, mats, (mats._version,), lambda: _pack_double(mats))
 
 
 def _double_pairs(params, n_x: Optional[int], cutoff: Optional[int]):
@@ -884,11 +953,17 @@ def stft_feats_double(
 
     Replaces ``speech_tpu/ops/pallas_stft.py:stft_feats_pallas_double``
     (``_double_rows_kernel``).  Bound on an H100: the pair dots, ``2*F*K*2nb``
-    per pair, against the dense bf16 tensor-core rate (the digits are
-    exact in bf16), plus the fp32 tail.  Design: see
-    ``csrc/double_kernels.cu``; the dots run as fp32 FMAs on the CUDA
-    cores, an SGEMM-like tiling whose x digits are recomputed from the
-    signal per tile, so frames and digit planes never reach device memory.
+    per pair, against the 989 TFLOP/s dense bf16 tensor-core rate, plus
+    the fp32 tail over each filter's span.  Design (``csrc/double_kernels.cu``):
+    one block per (row, 128 frames) stages its samples in shared memory;
+    two warpgroups run each pair dot as ``wgmma`` bf16 products with the x
+    digits computed into registers from the samples (every digit is exact
+    in bf16) and the M plane of :func:`_pack_double` streaming through a
+    shared-memory ring, one 64-bin chunk of columns at a time; the tensor
+    cores sum each dot in fp32 exactly (measured by
+    ``tools/torch_wgmma_probe.py``: integer sums up to 2^24), and each
+    pair's term adds into the fp32 accumulator in pair order.  Frames and
+    digit planes never reach device memory.
     """
     padded = padded.to(torch.float32)
     if padded.dim() != 2:
@@ -943,16 +1018,19 @@ def stft_feats_double(
     pairs = _double_pairs(params, n_x, cutoff)
     pair_i = (ctypes.c_int * len(pairs))(*(i for i, _ in pairs))
     pair_j = (ctypes.c_int * len(pairs))(*(j for _, j in pairs))
+    packed, _ = _packed_double(mats)
+    w_hi, w_lo = tail["w_hi"], tail["w_lo"]
+    spans = _digit_spans(w_hi, w_lo)
     with torch.cuda.device(padded.device):
         _launch(
             "stk_double_feats", "stft_feats_double",
             padded.data_ptr(), padded.shape[0], padded.shape[1], padded.shape[1],
-            frame_shift, num_frames, frame_length, nb, n_filts, mats.data_ptr(),
+            frame_shift, num_frames, frame_length, nb, n_filts, packed.data_ptr(),
             mats.shape[0], len(pairs), pair_i, pair_j,
             float(params["pdk_cos_scale"]), tail["mixed_scale"].data_ptr(),
-            tail["mask"].data_ptr(), tail["w_hi"].data_ptr(), tail["w_lo"].data_ptr(),
-            tail["w_nyq"].data_ptr(), out.data_ptr(), int(use_log), int(use_power),
-            int(include_energy), float(log_floor), _stream(padded),
+            tail["mask"].data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+            tail["w_nyq"].data_ptr(), spans.data_ptr(), out.data_ptr(), int(use_log),
+            int(use_power), int(include_energy), float(log_floor), _stream(padded),
         )
     stft_feats_double.launches += 1
     return out

@@ -226,3 +226,222 @@ def test_computer_routes_no_tier_to_double_kernel():
         _, tc = _pair(precision=precision, fft_mode="pallas")
         assert tc._use_kernel(torch.device("cuda")) == "int8"
         assert "pdk_mats" in tc.params
+
+
+# --- the bf16 tensor-core layout and arithmetic of the CUDA kernel ----------
+
+# (computer kwargs, K, dft): the main shape; K 390 (rows padded to 416);
+# dft 384 (nb 192: three whole chunks); K 512 at dft 1024 (nb 512), built
+# by hand since the computer pads 512 samples to a 512-point DFT
+DOUBLE_LAYOUTS = [
+    (dict(), 400, 512),
+    (dict(frame_length_ms=24.375), 390, 512),
+    (dict(frame_length_ms=24, pad_to_nearest_power_of_two=False), 384, 384),
+    (dict(frame_length_ms=32), 512, 1024),
+]
+DOUBLE_LAYOUT_IDS = ["main", "k390", "dft384", "k512-dft1024"]
+
+
+def _pdk_params(kw, dft, precision="double", window="hann"):
+    """The port's ``pdk_*`` params on the CPU; at a ``dft`` the computer
+    does not pick (K 512, dft 1024) rebuilt from its window and a bank
+    folded at that size."""
+    kw = {"frame_length_ms": 25, "frame_shift_ms": 10, **kw}
+    tc = STFTFrameComputer(
+        dict(BANK), device="cpu", precision=precision, window_function=window, **kw
+    )
+    params = dict(tc.params)
+    if tc.dft_size != dft:
+        C, S = tstft.windowed_dft_matrices(tc._window, dft)
+        W = tstft.fold_bank_to_weights(tc._bank, dft, False)
+        pdk = tstft.digit_kernel_matrices(C, S, W)
+        params["pdk_cos_scale"] = float(pdk.pop("cos_scale"))
+        params.update({"pdk_" + k: torch.tensor(v) for k, v in pdk.items()})
+    return tc, params
+
+
+def _double_dense(packed, steps):
+    """The packed bf16 layout back to dense float64 ``(n_m, steps * 16,
+    chunks * 128)``: [plane][k][column], columns (real, mixed) by bin."""
+    n_m, chunks = packed.shape[:2]
+    return packed.permute(0, 2, 4, 6, 1, 3, 5).reshape(n_m, steps * 16, chunks * 128).double()
+
+
+@pytest.mark.parametrize("kw,K_,dft", DOUBLE_LAYOUTS, ids=DOUBLE_LAYOUT_IDS)
+def test_pack_double_layout_decodes_to_pdk_mats(kw, K_, dft):
+    """The layout the bf16 kernel reads: (n_m, chunks, steps, 16, 2, 8, 8)
+    core matrices, every digit exact in bf16, a chunk's columns the (real,
+    mixed) pairs of 64 bins with the Nyquist cosine in bin 0's mixed slot,
+    zero past K and past nb; the filter spans bound the nonzero rows of
+    w_hi | w_lo."""
+    tc, params = _pdk_params(kw, dft)
+    mats = params["pdk_mats"]
+    nb = dft // 2
+    assert tuple(mats.shape) == (4, K_, 2 * nb)
+    assert torch.equal(mats.to(torch.bfloat16).to(torch.float32), mats)
+    assert mats.abs().max() <= 256
+    packed, steps = K._pack_double(mats)
+    chunks = -(-nb // 64)
+    assert steps == -(-K_ // 32) * 2
+    assert packed.dtype == torch.bfloat16
+    assert tuple(packed.shape) == (4, chunks, steps, 16, 2, 8, 8)
+    pairs = _double_dense(packed, steps).reshape(4, steps * 16, chunks * 64, 2)
+    real, mixed = pairs[..., 0], pairs[..., 1]
+    assert not real[:, K_:].any() and not mixed[:, K_:].any()
+    assert not real[..., nb:].any() and not mixed[..., nb:].any()
+    got = torch.cat([real[:, :K_, :nb], mixed[:, :K_, :nb]], dim=-1)
+    assert torch.equal(got, mats.double())
+    # bin 0's mixed slot: the digit planes of the Nyquist cosine column
+    C, _ = tstft.windowed_dft_matrices(tc._window, dft)
+    nyq, _ = tstft.digitize_matrix(C, 4, tstft._PDK_BASE)
+    cos_planes, _ = tstft.digitize_matrix(C, 4, tstft._PDK_BASE)
+    assert np.array_equal(mixed[:, :K_, 0].numpy(), nyq[:, :, nb])
+    assert np.array_equal(real[:, :K_, :nb].numpy(), cos_planes[:, :, :nb])
+    w_hi, w_lo = params["pdk_w_hi"], params["pdk_w_lo"]
+    spans = K._filter_spans(w_hi, w_lo)
+    nz = ((w_hi != 0) | (w_lo != 0)).numpy()
+    for c, (first, last) in enumerate(spans.tolist()):
+        rows = np.flatnonzero(nz[:, c])
+        assert (first, last) == (rows[0], rows[-1] + 1)
+
+
+def test_packed_double_built_once_per_pdk_mats():
+    """The B4 wrapper packs a pdk_mats tensor once and packs again when it
+    changes in place."""
+    tc, params = _pdk_params({}, 512)
+    mats = params["pdk_mats"]
+    first = K._packed_double(mats)
+    assert K._packed_double(mats) is first
+    mats.add_(0)  # bumps the version: the packing is stale
+    again = K._packed_double(mats)
+    assert again is not first and torch.equal(again[0], first[0])
+    slot = id(mats)
+    del tc, params, mats
+    assert slot not in K._PACKED
+
+
+def _digits(frames, n_x):
+    """The x digit planes and scales of ``frames``, as the kernel computes
+    them: each round takes ``d = (256 v + 1.5 * 2^23) - 1.5 * 2^23`` and
+    keeps ``256 v - d`` (float32)."""
+    m = torch.clamp_min(frames.abs().amax(-1, keepdim=True), 1e-30)
+    scale = (((m.contiguous().view(torch.int32) >> 23) + 2) << 23).view(torch.float32)
+    v = frames * (1.0 / scale)
+    magic = torch.tensor(1.5 * 2.0**23, dtype=torch.float32)
+    planes = []
+    for _ in range(n_x):
+        d = (v * 256 + magic) - magic
+        v = v * 256 - d
+        planes.append(d)
+    return planes, scale
+
+
+def _emulate_double(padded, params, spec, n_x=None, cutoff=None):
+    """The B4 kernel's arithmetic on the CPU from the packed operand: per
+    64-bin chunk and pair, the k-steps of 16 in order, each a float64
+    product of bf16-exact digits (an exact integer), the pair's sum weighted
+    and added into the fp32 accumulator in pair order; then the fp32 tail.
+    Returns ``(features, {pair: g})``."""
+    frames = TF.frame_padded(padded, spec["num_frames"], spec["frame_length"], spec["frame_shift"])
+    K_ = frames.shape[-1]
+    pairs = K._double_pairs(params, n_x, cutoff)
+    planes, scale = _digits(frames, max(i for i, _ in pairs) + 1)
+    packed, steps = K._pack_double(params["pdk_mats"])
+    dense = _double_dense(packed, steps)
+    chunks = packed.shape[1]
+    nb = params["pdk_mask"].shape[0]
+    x = [torch.nn.functional.pad(p, (0, steps * 16 - K_)).double() for p in planes]
+    assert all(torch.equal(p.to(torch.bfloat16).double(), p) for p in x)
+    acc = torch.zeros(*frames.shape[:-1], chunks * 128)
+    gs = {}
+    for c in range(chunks):
+        cols = slice(128 * c, 128 * c + 128)
+        part = torch.zeros(*frames.shape[:-1], 128)
+        for i, j in pairs:
+            g = torch.zeros(*frames.shape[:-1], 128, dtype=torch.float64)
+            for u in range(steps):
+                ks = slice(16 * u, 16 * u + 16)
+                g = g + x[i][..., ks] @ dense[j, ks, cols]
+            gs.setdefault((i, j), []).append(g)
+            part = part + (g.float() * float(tstft._PDK_BASE) ** -(i + j + 2))
+        acc[..., cols] = part
+    pairs_ = acc.reshape(*acc.shape[:-1], -1, 2)[..., :nb, :]
+    interleaved = torch.cat([pairs_[..., 0], pairs_[..., 1]], dim=-1)
+    with tstft.ieee_float32():
+        feats = K._digit_tail(interleaved, scale, params, "pdk_", use_power=spec["use_power"])
+    if spec["use_log"]:
+        feats = tstft.floor_log(feats, spec["log_floor"])
+    if spec["include_energy"]:
+        energy = tstft.frame_energy(
+            frames, use_log=spec["use_log"], use_power=spec["use_power"],
+            log_floor=spec["log_floor"],
+        )
+        feats = torch.cat([energy[..., None], feats], dim=-1)
+    return feats, {p: torch.cat(v, dim=-1) for p, v in gs.items()}
+
+
+def _plain_pair_sums(padded, params, spec, n_x=None, cutoff=None):
+    """``{(i, j): integer pair sums}`` of the plain version's digits, in
+    float64 (exact), columns in the chunk layout's (real, mixed) order."""
+    frames = TF.frame_padded(padded, spec["num_frames"], spec["frame_length"], spec["frame_shift"])
+    pairs = K._double_pairs(params, n_x, cutoff)
+    planes, _ = _digits(frames, max(i for i, _ in pairs) + 1)
+    mats = params["pdk_mats"].double()
+    nb = mats.shape[2] // 2
+    out = {}
+    for i, j in pairs:
+        g = planes[i].double() @ mats[j]
+        out[(i, j)] = torch.stack([g[..., :nb], g[..., nb:]], dim=-1).flatten(-2)
+    return out
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+@pytest.mark.parametrize("kw", [dict(), dict(frame_length_ms=24.375)], ids=["main", "k390"])
+@pytest.mark.parametrize("include_energy,use_power,use_log", COMBOS[::3], ids=COMBO_IDS[::3])
+def test_double_kernel_emulation_matches_plain(tier, kw, include_energy, use_power, use_log):
+    """The kernel's k-step order over the packed operand gives the plain
+    version's pair integers exactly, and features within TOL_DIGIT of
+    ``stft_feats_double_plain``."""
+    n_x, cutoff = TIERS[tier]
+    tc, params = _pdk_params(dict(use_power=use_power, **kw), 512, precision=tier)
+    x = torch.tensor(np.random.RandomState(31).randn(2, 3000).astype(np.float32))
+    padded = TF.pad_signal_full(x, tc.frame_length, tc._pad_left)
+    spec = dict(
+        num_frames=TF.frame_count_np(3000, tc.frame_length, tc.frame_shift),
+        frame_length=tc.frame_length, frame_shift=tc.frame_shift, dft_size=tc.dft_size,
+        use_log=use_log, use_power=use_power, include_energy=include_energy, log_floor=1e-5,
+    )
+    got, gs = _emulate_double(padded, params, spec, n_x, cutoff)
+    want_g = _plain_pair_sums(padded, params, spec, n_x, cutoff)
+    nb = params["pdk_mask"].shape[0]
+    assert set(gs) == set(want_g)
+    for pair, g in gs.items():
+        assert torch.equal(g[..., : 2 * nb], want_g[pair]), pair
+        assert not g[..., 2 * nb :].any()
+    want = K.stft_feats_double_plain(padded, params, n_x=n_x, cutoff=cutoff, **spec)
+    _close(got.numpy(), want.numpy(), use_log)
+
+
+def test_digit_adversary_drives_pair_sums_to_2_23():
+    """The adversary rows at K = 512 with the Hamming window: the plain
+    version's pair sums reach at least 2^23 (and at most the 2^24 bound of
+    K * 128 * 256) on the DC and Nyquist slots, for pairs (0, 0) and (1, 0);
+    Hann's plane-0 digits are half as large, so it stays below."""
+    rows = K._digit_adversary_rows(3, 9000)
+    assert rows.dtype == torch.float32 and tuple(rows.shape) == (3, 9000)
+    for window, reaches in (("hamming", True), ("hann", False)):
+        tc, params = _pdk_params(dict(frame_length_ms=32), 1024, window=window)
+        assert tc.frame_length == 512
+        padded = TF.pad_signal_full(rows, tc.frame_length, tc._pad_left)
+        spec = dict(
+            num_frames=TF.frame_count_np(9000, 512, tc.frame_shift), frame_length=512,
+            frame_shift=tc.frame_shift,
+        )
+        gs = _plain_pair_sums(padded, params, spec)
+        peak = max(g.abs().max().item() for g in gs.values())
+        assert peak <= 2**24
+        assert (peak >= 2**23) == reaches, (window, peak)
+        if reaches:
+            for pair in ((0, 0), (1, 0)):
+                dc, nyq = gs[pair][..., 0], gs[pair][..., 1]  # bin 0's real and mixed
+                assert dc[0].abs().max() >= 2**23 and nyq[1].abs().max() >= 2**23, pair

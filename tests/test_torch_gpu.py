@@ -7,6 +7,10 @@ on a GPU machine, from the repo root:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import functools
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -243,22 +247,152 @@ def test_int8_kernel_repeats_bitwise(precision, frame_length_ms):
 DOUBLE_TIERS = {"double": {}, "accurate": dict(n_x=4, cutoff=3)}
 
 
+# the shapes of the other kernels, and the digit adversary
+# (K._digit_adversary_rows: pair sums past 2^23) at K 512 with the Hamming
+# window and dft 1024 (nb 512), params built by hand since the computer
+# pads 512 samples to a 512-point DFT
+ADVERSARY = "k512-dft1024-adversary"
+DOUBLE_SHAPES = SHAPES + [ADVERSARY]
+DOUBLE_SHAPE_IDS = SHAPE_IDS + [ADVERSARY]
+
+
+def _double_case(dev, shape, seed, *, use_power, precision):
+    """``(params, padded, kwargs of the B4 call)`` of one shape."""
+    if shape != ADVERSARY:
+        tc, padded, mf = _setup(dev, shape, seed, use_power=use_power, precision=precision)
+        params, dft = tc.params, tc.dft_size
+    else:
+        tc = STFTFrameComputer(
+            dict(BANK), frame_length_ms=32, frame_shift_ms=10, window_function="hamming",
+            device=dev, use_power=use_power, precision=precision,
+        )
+        dft = 1024
+        C, S = TS.windowed_dft_matrices(tc._window, dft)
+        W = TS.fold_bank_to_weights(tc._bank, dft, use_power)
+        pdk = TS.digit_kernel_matrices(C, S, W, ndig=tc.params["pdk_mats"].shape[0])
+        params = {"pdk_cos_scale": float(pdk.pop("cos_scale"))}
+        params.update({"pdk_" + k: torch.tensor(v, device=dev) for k, v in pdk.items()})
+        n = 9000
+        padded = TF.pad_signal_full(K._digit_adversary_rows(3, n).to(dev), 512, tc._pad_left)
+        mf = TF.frame_count_np(n, 512, tc.frame_shift)
+    kw = dict(
+        num_frames=mf, frame_length=tc.frame_length, frame_shift=tc.frame_shift,
+        dft_size=dft, use_power=use_power, **DOUBLE_TIERS[precision],
+    )
+    return params, padded, kw
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", sorted(DOUBLE_TIERS))
-@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("shape", DOUBLE_SHAPES, ids=DOUBLE_SHAPE_IDS)
 @pytest.mark.parametrize("include_energy,use_power,use_log", COMBOS, ids=COMBO_IDS)
 def test_double_kernel_matches_plain(shape, precision, include_energy, use_power, use_log):
     dev = _device()
-    tc, padded, mf = _setup(dev, shape, 83, use_power=use_power, precision=precision)
+    params, padded, kw = _double_case(dev, shape, 83, use_power=use_power, precision=precision)
+    kw.update(use_log=use_log, include_energy=include_energy, log_floor=1e-5)
+    K.reset_launch_counts()
+    got = K.stft_feats_double(padded, params, **kw)
+    assert K.launch_counts()["stft_feats_double"] == 1
+    _close(got, K.stft_feats_double_plain(padded, params, **kw), TOL_INT8, use_log)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", sorted(DOUBLE_TIERS))
+@pytest.mark.parametrize(
+    "shape",
+    [(25, 25, True), (25, 10.0625, True), (32, 16, True), (25, 16, True)],
+    ids=["unstaged-shift400", "odd-shift161", "unstaged-k512-shift256", "unstaged-k400-shift256"],
+)
+def test_double_kernel_sample_paths(shape, precision):
+    """The kernel's other two ways to its samples: a 25 ms shift (400
+    samples), where a block's 128 frames of samples do not fit in shared
+    memory and are read from device memory; and an odd shift (161 samples),
+    where the staged sample pairs are not 8-byte aligned and load one by
+    one.  A 16 ms shift (256 samples) at K 512 and K 400 leaves room for the
+    samples beside a ring of 2 stages but not of 3, the least depth the
+    ring runs at, so they too are read from device memory."""
+    dev = _device()
+    params, padded, kw = _double_case(dev, shape, 87, use_power=False, precision=precision)
+    kw.update(use_log=True, include_energy=True, log_floor=1e-5)
+    K.reset_launch_counts()
+    got = K.stft_feats_double(padded, params, **kw)
+    assert K.launch_counts()["stft_feats_double"] == 1
+    _close(got, K.stft_feats_double_plain(padded, params, **kw), TOL_INT8, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_filts", [161, 162])
+def test_double_kernel_filter_limit(num_filts):
+    """B4 keeps two fp32 sums of its 128 frames a filter in shared memory
+    beside a ring of at least 3 stages: 161 filters fit (the samples then
+    read from device memory, the ring at its least depth) and match the
+    plain version; 162 do not, and the call raises with nothing run in the
+    kernel's place."""
+    dev = _device()
+    tc = STFTFrameComputer(
+        dict(BANK, num_filts=num_filts), frame_length_ms=25, frame_shift_ms=10, device=dev,
+        precision="double",
+    )
+    n = 9000
+    x = torch.tensor(np.random.RandomState(88).randn(3, n).astype(np.float32), device=dev)
+    padded = TF.pad_signal_full(x, tc.frame_length, tc._pad_left)
     kw = dict(
-        num_frames=mf, frame_length=tc.frame_length, frame_shift=tc.frame_shift,
-        dft_size=tc.dft_size, use_log=use_log, use_power=use_power,
-        include_energy=include_energy, log_floor=1e-5, **DOUBLE_TIERS[precision],
+        num_frames=TF.frame_count_np(n, tc.frame_length, tc.frame_shift),
+        frame_length=tc.frame_length, frame_shift=tc.frame_shift, dft_size=tc.dft_size,
+        use_power=False, use_log=True, include_energy=True, log_floor=1e-5,
     )
     K.reset_launch_counts()
+    if num_filts > 161:
+        with pytest.raises(RuntimeError, match="does not fit in shared memory"):
+            K.stft_feats_double(padded, tc.params, **kw)
+        assert K.launch_counts()["stft_feats_double"] == 0
+        return
     got = K.stft_feats_double(padded, tc.params, **kw)
     assert K.launch_counts()["stft_feats_double"] == 1
-    _close(got, K.stft_feats_double_plain(padded, tc.params, **kw), TOL_INT8, use_log)
+    _close(got, K.stft_feats_double_plain(padded, tc.params, **kw), TOL_INT8, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", sorted(DOUBLE_TIERS))
+@pytest.mark.parametrize("shape", [SHAPES[0], ADVERSARY], ids=["main", ADVERSARY])
+def test_double_kernel_repeats_bitwise(precision, shape):
+    """No atomics and a fixed order of every sum: 100 calls of B4 give the
+    same bits, within TOL_INT8 of the plain version."""
+    dev = _device()
+    params, padded, kw = _double_case(dev, shape, 86, use_power=False, precision=precision)
+    kw.update(use_log=True, include_energy=True, log_floor=1e-5)
+    first = K.stft_feats_double(padded, params, **kw)
+    _close(first, K.stft_feats_double_plain(padded, params, **kw), TOL_INT8, True)
+    differ = sum(
+        not torch.equal(K.stft_feats_double(padded, params, **kw), first) for _ in range(100)
+    )
+    assert differ == 0, f"{differ} of 100 calls differ from the first"
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_probe():
+    """The verdict of tools/torch_wgmma_probe.py on this card, once."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "tools", "torch_wgmma_probe.py")
+    spec = importlib.util.spec_from_file_location("torch_wgmma_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    return probe.probe()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["wgmma_ss", "wgmma_rs", "mma_sync"])
+def test_tensor_cores_sum_integer_digits_exactly(path):
+    """B4 rests on the bf16 tensor cores summing integer products in fp32
+    exactly while every partial sum stays at or below 2^24: the probe's
+    patterns (sums up to 2^24, cancellation, large then +-1 terms, random
+    and real digits) give the int64 sums bit for bit on every path."""
+    _device()
+    verdict = _wgmma_probe()
+    rows = verdict["results"][path]
+    assert max(peak for _, _, _, peak in rows.values()) == 2**24
+    bad = {key: r for key, r in rows.items() if r[1]}
+    assert not bad, bad
 
 
 @pytest.mark.cuda

@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with an H100 and nvcc:
     python3 tools/torch_float_variants.py
 
 Each variant is the kernel's source with one edit, built with the port's
-own nvcc flags into ``build/float_variants/`` and swapped in for the
+own nvcc flags into ``build/stft_kernels_variants/`` and swapped in for the
 kernel's library, so every variant runs through the same wrapper:
 
 - ``noskew``: the sample buffer without its skew (the launcher finds no
@@ -23,10 +23,7 @@ the first case) and prints the median milliseconds of 20 calls of each,
 by CUDA events, with the card's name and power limit first.
 """
 
-import ctypes
 import os
-import statistics
-import subprocess
 import sys
 
 import numpy as np
@@ -35,54 +32,19 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from speech_tpu_torch.compute import STFTFrameComputer  # noqa: E402
-from speech_tpu_torch.ops import _build  # noqa: E402
 from speech_tpu_torch.ops import framing as F  # noqa: E402
 from speech_tpu_torch.ops import stft_kernels as K  # noqa: E402
+from torch_variants import build_variants, card, cuda_ms, use  # noqa: E402
 
 EDITS = {
-    "noskew": ("for (int sh = 5; sh <= 9; ++sh)", "for (int sh = 5; sh <= 4; ++sh)"),
-    "hionly": (
+    "noskew": [("for (int sh = 5; sh <= 9; ++sh)", "for (int sh = 5; sh <= 4; ++sh)")],
+    "hionly": [(
         "constexpr int kBytes = kPasses == 3 ? kStepBytes : kPartBytes;",
         "constexpr int kBytes = kPartBytes;",
-    ),
+    )],
 }
 BANK = {"name": "fbank", "num_filts": 40, "sampling_rate": 16000}
 LOG = dict(use_log=True, use_power=False, include_energy=True, log_floor=1e-5)
-
-
-def build_variants():
-    """``{name: CDLL}``: the kernel's own library and each edited one."""
-    libs = {"kernel": _build.load_kernels()["stft_kernels"]}
-    src = (_build.CSRC / "stft_kernels.cu").read_text()
-    out = _build._build_dir().parent / "float_variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (old, new) in EDITS.items():
-        if src.count(old) != 1:
-            sys.exit(f"{name}: the edit's target is not in the source once")
-        (out / f"{name}.cu").write_text(src.replace(old, new))
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"), str(out / f"{name}.cu")]
-        )
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            sys.exit(f"nvcc failed on the {name} variant")
-        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
-    return libs
-
-
-def cuda_ms(fn, reps=20):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def case(rng, batch, length_ms, shift_ms, *, frames, precision="highest"):
@@ -107,11 +69,8 @@ def case(rng, batch, length_ms, shift_ms, *, frames, precision="highest"):
 def main():
     if not torch.cuda.is_available():
         sys.exit("this script needs a GPU")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip(), flush=True)
-    libs = build_variants()
+    print(card(), flush=True)
+    libs = build_variants("stft_kernels", EDITS)
     rng = np.random.RandomState(5)
     cases = [
         ("B1 rows K400 shift 160 'highest' 128x15s", case(rng, 128, 25, 10, frames=False), True),
@@ -125,8 +84,7 @@ def main():
     for label, fn, hionly in cases:
         outs, times = {}, {}
         for name in ("kernel", "noskew", "noskew", "kernel") + (("hionly",) if hionly else ()):
-            _build._libs["stft_kernels"] = libs[name]
-            K._launcher.cache_clear()
+            use("stft_kernels", libs[name])
             outs.setdefault(name, fn().clone())
             times.setdefault(name, []).append(cuda_ms(fn))
         same = torch.equal(outs["kernel"], outs["noskew"])
@@ -136,8 +94,7 @@ def main():
         print(line, flush=True)
         if not same:
             sys.exit(f"{label}: the skew changed the features")
-    _build._libs["stft_kernels"] = libs["kernel"]
-    K._launcher.cache_clear()
+    use("stft_kernels", libs["kernel"])
 
 
 if __name__ == "__main__":
