@@ -16,7 +16,9 @@ Phases (each passes or the script exits non-zero):
    TOL_DEFAULT;
 4. drive ``stft_feats_double`` (the base-256 digit kernel, B4, which no
    computer route runs) at 128 x 15 s for 'double' and 'accurate', with
-   its launch counter set to 0 before and read after;
+   its launch counter set to 0 before and read after; then B4 on banks of
+   370 and 512 filters (filter groups, one grid slice each) against its
+   plain version;
 5. drive the main path, ``STFTFrameComputer.compute_batch`` on 128 x 15 s,
    for every tier (and the ragged, int16 and 10.25 ms-shift variants),
    with every launch counter set to 0 before and read after: each kernel
@@ -27,7 +29,14 @@ Phases (each passes or the script exits non-zero):
    on the plain 'highest' path with the same noise;
 7. hold 'double' on the card against a float64 CPU run of the port on
    ``tests/audio/test.wav``;
-8. print the kernels line and, last, the device line.
+8. short integration: ``ShortIntegrationFrameComputer.compute_batch`` at
+   ``bench.py``'s width (32 x 10 s, gammatone-40 and gabor-40, mel scale,
+   10 ms shift, energy, float32), 'highest' for both banks and 'double'
+   and 'accurate' for gammatone, timed; each tier on ``test.wav`` against
+   a float64 CPU run of the port;
+9. PLP and VADTrim through ``device_post_chain`` on the card against the
+   same chain on the CPU;
+10. print the kernels line and, last, the device line.
 
 It imports torch, numpy and ``speech_tpu_torch`` only.
 """
@@ -61,6 +70,15 @@ TOL_F64 = 1e-5  # 'double' vs float64 on speech (tests/test_pallas.py:250)
 # tier's 1e-4, then float32 standardization scales each coefficient by
 # 1/std (std >= ~0.1 on the deltas)
 TOL_CHAIN = 1e-3
+# SI 'highest' on the card (IEEE fp32 products, cuBLAS) vs float64 on
+# speech: the float tiers' 1e-4 (tests/test_pallas.py:55); the reference
+# measures its own fp32 SI conv at ~2e-5 on gammatone (compute.py:899-903)
+TOL_SI_FLOAT = 1e-4
+SI_BANKS = {
+    name: {"name": name, "scaling_function": "mel", "num_filts": 40, "sampling_rate": 16000}
+    for name in ("gammatone", "gabor")
+}
+SI_BATCH, SI_SECONDS = 32, 10
 SOURCE = "speech_tpu_torch/csrc/stft_kernels.cu"  # B1, B3
 INT8_SOURCE = "speech_tpu_torch/csrc/int8_kernels.cu"  # B2
 DOUBLE_SOURCE = "speech_tpu_torch/csrc/double_kernels.cu"  # B4
@@ -119,11 +137,13 @@ def main():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     import speech_tpu_torch  # noqa: F401  (the checkout's own package)
     from speech_tpu_torch import pre
-    from speech_tpu_torch.compute import STFTFrameComputer
+    from speech_tpu_torch import post
+    from speech_tpu_torch.compute import SIFrameComputer, STFTFrameComputer
     from speech_tpu_torch.ops import _build
     from speech_tpu_torch.ops import framing as F
     from speech_tpu_torch.ops import postops
     from speech_tpu_torch.ops import stft_kernels as K
+    from speech_tpu_torch.ops.vad import energy_vad
 
     # 1. build
     t0 = time.perf_counter()
@@ -339,6 +359,24 @@ def main():
     del padded
     torch.cuda.empty_cache()
 
+    # B4 on banks wider than one group's filter sums: 370 and 512 filters
+    wide_rows = sigs[:16]
+    for num_filts in (370, 512):
+        cw = STFTFrameComputer(dict(BANK, num_filts=num_filts), device=dev,
+                               **{**MAIN, "precision": "double"})
+        w_pad = F.pad_signal_full(wide_rows, fl, cw._pad_left)
+        w_kw = dict(num_frames=mf, frame_length=fl, frame_shift=fs, dft_size=cw.dft_size, **LOG_SPEC)
+        plan = K.double_launch_plan(dev, frame_shift=fs, frame_length=fl, n_filts=num_filts)
+        got = K.stft_feats_double(w_pad, cw.params, **w_kw)
+        err = (got - K.stft_feats_double_plain(w_pad, cw.params, **w_kw)).abs().max().item()
+        ms = cuda_ms(lambda: K.stft_feats_double(w_pad, cw.params, **w_kw))
+        print(f"stft_feats_double [double] {num_filts} filters on 16 x 15 s: "
+              f"{plan['groups']} groups of {plan['group_filters']}, {ms:.3f} ms, "
+              f"vs plain max abs {err:.3e}", flush=True)
+        check(plan["groups"] > 1, f"{num_filts} filters ran as one group")
+        check(err <= TOL_INT8, f"stft_feats_double at {num_filts} filters disagrees: {err}")
+        del got, w_pad
+
     # 5. the main path at full size; counts from 0 just before, read after
     paths = [
         ("double (auto)", computer(precision="double"), sigs, full),
@@ -421,7 +459,6 @@ def main():
     chain_ms = cuda_ms(lambda: chain(chain_double))
     print(f"full chain (double): {chain_ms:.3f} ms median, "
           f"{audio_s / (chain_ms / 1e3):.0f} audio-s/s", flush=True)
-    del chain_sigs
     torch.cuda.empty_cache()
 
     # 7. 'double' on the card vs a float64 run of the port on the CPU
@@ -437,7 +474,77 @@ def main():
     print(f"double (card) vs float64 (CPU) on test.wav: max abs {err64:.3e}", flush=True)
     check(err64 <= TOL_F64, f"'double' vs float64: {err64}")
 
-    # 8. the kernels line, the card, the device line
+    # 8. short integration at bench.py's width; its products are cuBLAS
+    # (IEEE fp32), as XLA runs them in the JAX package
+    si_n = SI_SECONDS * RATE
+    si_sigs = sigs[:SI_BATCH, :si_n].contiguous()
+    si_full = np.full(SI_BATCH, si_n)
+    si_audio = SI_BATCH * SI_SECONDS
+    wav = speech[: 3 * RATE]
+    si_runs = [("gammatone", "highest"), ("gabor", "highest"),
+               ("gammatone", "double"), ("gammatone", "accurate")]
+    for bank, precision in si_runs:
+        sc = SIFrameComputer(dict(SI_BANKS[bank]), frame_shift_ms=10, include_energy=True,
+                             dtype="float32", precision=precision, device=dev)
+        sc.params
+        feats, counts = sc.compute_batch(si_sigs, si_full)
+        torch.cuda.synchronize()
+        want_frames = int(sc.frame_counts_np([si_n])[0])
+        check(tuple(feats.shape) == (SI_BATCH, (si_n + 80) // 160, 41),
+              f"SI {bank} {precision}: shape {tuple(feats.shape)}")
+        check(bool((counts == want_frames).all()), f"SI {bank} {precision}: counts")
+        check(bool(torch.isfinite(feats[:, :want_frames]).all()),
+              f"SI {bank} {precision}: non-finite features")
+        del feats, counts
+        ms = cuda_ms(lambda: sc.compute_batch(si_sigs, si_full), reps=3)
+        s64 = SIFrameComputer(dict(SI_BANKS[bank]), frame_shift_ms=10, include_energy=True,
+                              dtype="float64", conv_mode="matmul", device="cpu")
+        want64 = s64.compute_full(wav.astype(np.float64))
+        got32 = sc.compute_full(wav.astype(np.float32)).astype(np.float64)
+        err = np.abs(got32 - want64).max()
+        tol = TOL_F64 if precision in ("double", "accurate") else TOL_SI_FLOAT
+        print(f"SI compute_batch {bank} [{precision}] ({sc._resolved_conv_mode()}) "
+              f"{SI_BATCH} x {SI_SECONDS} s: {ms:.3f} ms median, "
+              f"{si_audio / (ms / 1e3):.0f} audio-s/s; test.wav 3 s vs float64 (CPU): "
+              f"max abs {err:.3e} (tol {tol:g})", flush=True)
+        check(err <= tol, f"SI {bank} [{precision}] vs float64: {err}")
+        del sc
+        torch.cuda.empty_cache()
+    del si_sigs
+
+    # 9. PLP and VADTrim through the device post chain: linear power
+    # fbank features with their energy column, voiced frames kept (first,
+    # in order) by energy VAD on the log energy, then PLP cepstra of the
+    # bands; the same chain on the CPU from the same features
+    plp_comp = computer(use_log=False, use_power=True)
+    plp_feats, plp_counts = plp_comp.compute_batch(chain_sigs, full)
+
+    def vad_trim(x, n):
+        log_e = torch.log(torch.clamp_min(x[..., 0].double(), 1e-30))
+        voiced = energy_vad(log_e, energy_threshold=0.0, energy_mean_scale=1.0,
+                            frames_context=2, proportion_threshold=0.5, lengths=n)
+        order = torch.argsort((~voiced).to(torch.int8), dim=-1, stable=True)
+        bands = torch.gather(x[..., 1:], -2, order[..., None].expand(-1, -1, x.shape[-1] - 1))
+        return bands, voiced.sum(-1)
+
+    plp_chain = postops.device_post_chain([vad_trim, post.PLP(bank=dict(BANK)), post.Deltas(1)])
+    card_out, card_n = plp_chain(plp_feats, plp_counts)
+    torch.cuda.synchronize()
+    cpu_out, cpu_n = plp_chain(plp_feats.cpu(), plp_counts.cpu())
+    check(torch.equal(card_n.cpu(), cpu_n), "PLP/VAD chain: voiced counts differ from the CPU's")
+    check(0 < int(cpu_n.min()) and int(cpu_n.max()) < plp_feats.shape[1],
+          f"PLP/VAD chain: VAD kept {int(cpu_n.min())}..{int(cpu_n.max())} frames")
+    valid = torch.arange(card_out.shape[1])[None, :] < cpu_n[:, None]
+    plp_err = (card_out.cpu() - cpu_out).abs()[valid].max().item()
+    check(bool(torch.isfinite(card_out.cpu()[valid]).all()), "PLP/VAD chain: non-finite values")
+    plp_ms = cuda_ms(lambda: plp_chain(plp_feats, plp_counts))
+    print(f"VADTrim + PLP + deltas chain on the card vs the CPU: shape {tuple(card_out.shape)}, "
+          f"voiced {int(cpu_n.sum())} of {BATCH * plp_feats.shape[1]} frames, max abs "
+          f"{plp_err:.3e} (tol {TOL_FLOAT:g}); {plp_ms:.3f} ms", flush=True)
+    check(plp_err <= TOL_FLOAT, f"PLP/VAD chain disagrees with the CPU: {plp_err}")
+    del plp_feats, card_out, chain_sigs
+
+    # 10. the kernels line, the card, the device line
     kernels = []
     for name, e in entries.items():
         bound, bound_by = bound_ms(e)

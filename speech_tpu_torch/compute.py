@@ -1,7 +1,8 @@
 """Frame computers: signals -> feature matrices, in PyTorch.
 
 The counterpart of :mod:`speech_tpu.compute` for the STFT filter-bank
-computer.  All filter math is precomputed on the host at construction (see
+computer and the short-integration computer (the latter's device path is
+:mod:`speech_tpu_torch.ops.si`).  All filter math is precomputed on the host at construction (see
 :mod:`speech_tpu_torch.ops.stft`); on the device a batch goes through
 symmetric padding and then either one of the hand-written CUDA kernels of
 :mod:`speech_tpu_torch.ops.stft_kernels` or the plain tensor path (framing
@@ -27,6 +28,7 @@ from . import config
 from .alias import AliasedFactory, alias_factory_subclass_from_arg
 from .filters import GammaWindow, HannWindow, LinearFilterBank, WindowFunction
 from .ops import framing as _framing
+from .ops import si as _si
 from .ops import stft as _stft
 from .ops import stft_kernels as _kernels
 
@@ -36,7 +38,9 @@ __all__ = [
     "resolve_device",
     "FrameComputer",
     "LinearFilterBankFrameComputer",
+    "ShortIntegrationFrameComputer",
     "ShortTimeFourierTransformFrameComputer",
+    "SIFrameComputer",
     "STFTFrameComputer",
 ]
 
@@ -45,7 +49,14 @@ _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 _COMPACT_TORCH = (torch.int16, torch.int8, torch.uint8)
 _PRECISIONS = ("highest", "high", "default", "double", "accurate")
 _TAIL_KEYS = ("mixed_scale", "mask", "w_hi", "w_lo", "w_nyq")
-_SCALAR_KEYS = ("dft_cos_scale", "dft_sin_scale", "i8k_cos_scale", "pdk_cos_scale")
+_SCALAR_KEYS = (
+    "dft_cos_scale",
+    "dft_sin_scale",
+    "i8k_cos_scale",
+    "pdk_cos_scale",
+    "conv_re_scale",
+    "conv_im_scale",
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -724,6 +735,444 @@ class ShortTimeFourierTransformFrameComputer(LinearFilterBankFrameComputer):
 
 
 STFTFrameComputer = ShortTimeFourierTransformFrameComputer
+
+
+class ShortIntegrationFrameComputer(LinearFilterBankFrameComputer):
+    """Features by windowed short-time integration of filtered signals.
+
+    Each filter is convolved with the whole signal, a pointwise modulus or
+    power squashes the band to baseband, and a window of ``2*frame_shift``
+    samples integrates it per frame (reference: compute.py:613-999); the
+    closed form is in :mod:`speech_tpu_torch.ops.si`.
+
+    The arguments are those of
+    :class:`speech_tpu.compute.ShortIntegrationFrameComputer`, plus
+    ``device``.  ``conv_mode``: 'matmul' (banded-Toeplitz block products,
+    :func:`~speech_tpu_torch.ops.si.toeplitz_conv_blocks`), 'fft' (real-FFT
+    products, overlap-save in blocks for long signals), 'direct'
+    (``conv1d``) or 'auto' ('matmul' up to supports of ``16 *
+    CONV_BLOCK`` samples, then 'fft').  Precision tiers: 'highest'
+    (default), 'high' and 'default' all compute in IEEE float32 (or
+    float64), on the card as on the CPU; 'double' and 'accurate' are the
+    exact digit tiers of the convolution (float32 only; they force
+    'matmul'), within 1e-5 of float64 on speech.  The digit tiers' band
+    planes scale with the support squared, so banks whose planes would
+    pass :data:`speech_tpu_torch.config.SI_DIGIT_PARAM_BYTE_LIMIT` are
+    refused at construction.
+    """
+
+    aliases = {"si"}
+
+    def __init__(
+        self,
+        bank: Union[LinearFilterBank, Mapping, str],
+        frame_shift_ms: float = 10,
+        frame_style: Optional[str] = None,
+        include_energy: bool = False,
+        pad_to_nearest_power_of_two: bool = True,
+        window_function: Optional[Union[WindowFunction, Mapping, str]] = None,
+        use_power: bool = False,
+        use_log: bool = True,
+        dtype: str = "float32",
+        conv_mode: str = "auto",
+        precision: str = "highest",
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        if conv_mode not in ("auto", "fft", "direct", "matmul"):
+            raise ValueError(f"Invalid conv_mode: {conv_mode}")
+        if precision not in _PRECISIONS:
+            raise ValueError(f"Invalid SI precision: {precision!r}")
+        dtype_name = np.dtype(dtype).name
+        if dtype_name not in _TORCH_DTYPES:
+            raise ValueError(f"Invalid dtype: {dtype!r}")
+        self._dtype = _TORCH_DTYPES[dtype_name]
+        if precision in ("double", "accurate"):
+            if self._dtype != torch.float32:
+                raise ValueError(
+                    f"precision='{precision}' is a float32 digit-matmul "
+                    "tier; use dtype='float64' with the default precision "
+                    "instead"
+                )
+            if conv_mode == "fft" or conv_mode == "direct":
+                raise ValueError(
+                    f"precision='{precision}' requires the matmul "
+                    "convolution"
+                )
+            conv_mode = "matmul"
+        self._precision = precision
+        self._conv_mode = conv_mode
+        self._device = device
+        bank = alias_factory_subclass_from_arg(LinearFilterBank, bank)
+        self._rate = bank.sampling_rate
+        self._frame_shift = int(0.001 * frame_shift_ms * self._rate)
+        self._log = bool(use_log)
+        self._power = bool(use_power)
+        if frame_style is None:
+            frame_style = "centered" if bank.is_zero_phase else "causal"
+        elif frame_style not in ("centered", "causal"):
+            raise ValueError('Invalid frame style: "{}"'.format(frame_style))
+        self._frame_style = frame_style
+        if window_function is None:
+            window_function = (
+                GammaWindow() if frame_style == "causal" else HannWindow()
+            )
+        else:
+            window_function = alias_factory_subclass_from_arg(
+                WindowFunction, window_function
+            )
+        window = window_function.get_impulse_response(2 * self._frame_shift)
+        self._kernel = _si.build_si_kernel(
+            bank, self._frame_shift, frame_style, window, include_energy
+        )
+        if precision in ("double", "accurate"):
+            # the digit tiers' band planes scale with the squared support:
+            # refuse an fbank-class bank here, with guidance, rather than
+            # run out of device memory later
+            T = self._kernel["max_support"]
+            V = _si.CONV_BLOCK
+            Kb = (-(-(T - 1) // V) if T > 1 else 0) + 1
+            ndig = _stft._SAK_M_DIGITS if precision == "accurate" else _stft._M_DIGITS
+            parts = 1 if self._kernel["is_real"] else 2
+            est = ndig * parts * Kb * bank.num_filts * V * V * 4
+            limit = config.SI_DIGIT_PARAM_BYTE_LIMIT
+            if limit and est > limit:
+                raise ValueError(
+                    f"SI precision={precision!r} would build "
+                    f"~{est / 2**30:.1f} GiB of digit parameter planes "
+                    f"(max_support={T} taps, {bank.num_filts} filters, "
+                    f"{ndig} digit planes x {parts} part(s)), above "
+                    f"config.SI_DIGIT_PARAM_BYTE_LIMIT="
+                    f"{limit / 2**30:.1f} GiB.  The digit tiers are "
+                    "designed for gammatone/gabor-class supports "
+                    "(hundreds of taps); for banks with very long "
+                    "supports use precision='highest' (optionally "
+                    "conv_mode='fft'), or raise the limit if the device "
+                    "really has the memory."
+                )
+        # pad_to_nearest_power_of_two sizes only the reference's internal
+        # block DFT, not its output; the FFT sizes here are independent
+        # streaming state: raw samples seen and frames already emitted; the
+        # float64 host history holds x from global index _hist_start
+        self._seen = 0
+        self._frames_done = 0
+        self._hist = np.zeros(0, dtype=np.float64)
+        self._hist_start = 0
+        self._started = False
+        self._chunk_dtype = np.float64
+        self._params = None
+        self._conv_block_params = None
+        super().__init__(bank, include_energy=include_energy)
+
+    # ------------------------------------------------------------------
+
+    @property
+    def frame_style(self) -> str:
+        return self._frame_style
+
+    @property
+    def sampling_rate(self) -> float:
+        return self._rate
+
+    @property
+    def frame_length(self) -> int:
+        return self._kernel["frame_length"]
+
+    @property
+    def frame_shift(self) -> int:
+        return self._frame_shift
+
+    @property
+    def started(self) -> bool:
+        return self._started
+
+    @property
+    def max_support(self) -> int:
+        """Length all filters are FIR-clamped to."""
+        return self._kernel["max_support"]
+
+    @property
+    def device(self) -> torch.device:
+        """Where this computer runs (``cuda`` unless given)."""
+        return resolve_device(self._device)
+
+    @property
+    def _shift_eff(self) -> int:
+        return self._kernel["shift_eff"]
+
+    # ------------------------------------------------------------------
+    # parameters
+    # ------------------------------------------------------------------
+
+    @property
+    def params(self) -> dict:
+        """Device tensors of the pipeline: ``firs_re`` (and ``firs_im`` for
+        complex banks; the convolutions only need the real products of the
+        two parts) and the integration ``window``, built on first use."""
+        if self._params is None:
+            firs = self._kernel["firs"]
+            np_dtype = _NUMPY_DTYPES[self._dtype]
+            params = {
+                "firs_re": np.asarray(firs.real, np_dtype),
+                "window": np.asarray(self._kernel["window"], np_dtype),
+            }
+            if not self._kernel["is_real"]:
+                params["firs_im"] = np.asarray(firs.imag, np_dtype)
+            self._params = {
+                k: torch.tensor(v, device=self.device) for k, v in params.items()
+            }
+        return self._params
+
+    def _resolved_conv_mode(self) -> str:
+        if self._conv_mode != "auto":
+            return self._conv_mode
+        T = self._kernel["max_support"]
+        return "matmul" if T <= 16 * _si.CONV_BLOCK else "fft"
+
+    def param_keys(self) -> set:
+        """The keys of the params the pipeline takes in this configuration
+        (the band matrices where it convolves by ``matmul``)."""
+        keys = {"firs_re", "window"}
+        parts = ["conv_re"]
+        if not self._kernel["is_real"]:
+            keys.add("firs_im")
+            parts.append("conv_im")
+        if self._resolved_conv_mode() == "matmul":
+            suffixes = (
+                ("_digits", "_scale") if self._precision in ("double", "accurate")
+                else ("_blocks",)
+            )
+            keys |= {p + s for p in parts for s in suffixes}
+        return keys
+
+    def _build_conv_block_params(self) -> dict:
+        firs = self._kernel["firs"]
+        parts = [("conv_re", np.ascontiguousarray(firs.real))]
+        if not self._kernel["is_real"]:
+            parts.append(("conv_im", np.ascontiguousarray(firs.imag)))
+        device = self.device
+        blocks = {}
+        for name, part in parts:
+            band = _si.toeplitz_conv_blocks(part)
+            if self._precision in ("double", "accurate"):
+                if self._precision == "accurate":
+                    planes, scale = _stft.digitize_matrix(
+                        band, _stft._SAK_M_DIGITS, _stft._SAK_BASE, margin=True
+                    )
+                else:
+                    planes, scale = _stft.digitize_matrix(band)
+                blocks[name + "_digits"] = torch.tensor(planes, device=device)
+                blocks[name + "_scale"] = float(scale)
+            else:
+                blocks[name + "_blocks"] = torch.tensor(
+                    band.astype(_NUMPY_DTYPES[self._dtype]), device=device
+                )
+        return blocks
+
+    def _params_for(self, spec: dict) -> dict:
+        """Params for a pipeline spec: ``conv_mode='matmul'`` adds the band
+        matrices (the digit tiers: their digit planes), built once."""
+        params = self.params
+        if spec["conv_mode"] != "matmul":
+            return params
+        if self._conv_block_params is None:
+            self._conv_block_params = self._build_conv_block_params()
+        return {**params, **self._conv_block_params}
+
+    def load_params(self, params: Mapping) -> None:
+        """Use ``params`` (for example :func:`params_from_jax` of the JAX
+        computer's ``params`` and band matrices) in place of the host
+        build, moved to this computer's device."""
+        missing = self.param_keys() - set(params)
+        if missing:
+            raise ValueError(f"params lack {sorted(missing)}")
+        device = self.device
+        loaded = {}
+        for key in self.param_keys():
+            value = params[key]
+            if isinstance(value, torch.Tensor):
+                if key.endswith("_digits"):
+                    value = value.to(device=device, dtype=torch.float32)
+                else:
+                    value = value.to(device=device, dtype=self._dtype)
+            loaded[key] = value
+        base = ("firs_re", "firs_im", "window")
+        self._params = {k: v for k, v in loaded.items() if k in base}
+        blocks = {k: v for k, v in loaded.items() if k not in base}
+        self._conv_block_params = blocks or None
+
+    def _spec(self, fft_size: int) -> dict:
+        return dict(
+            frame_shift=self._frame_shift,
+            shift_eff=self._shift_eff,
+            max_support=self._kernel["max_support"],
+            is_real=self._kernel["is_real"],
+            include_energy=self._include_energy,
+            use_log=self._log,
+            use_power=self._power,
+            log_floor=config.LOG_FLOOR_VALUE,
+            fft_size=fft_size,
+            energy_offset=self._shift_eff - self._kernel["translation"],
+            conv_mode=self._resolved_conv_mode(),
+            precision=self._precision,
+        )
+
+    def _run(self, buf, sig_len, num_frames: int, spec: dict):
+        return _si.si_feats_from_signal(
+            buf, sig_len, num_frames, self._params_for(spec), **spec
+        )
+
+    # ------------------------------------------------------------------
+    # batch API
+    # ------------------------------------------------------------------
+
+    def compute_full(self, signal: np.ndarray) -> np.ndarray:
+        """One-shot SI features; ``(len + shift//2) // shift`` frames.  The
+        signal goes into a zero buffer of the next power of two in length,
+        as the reference buckets it, so that the FFT size (and with it the
+        choice between one FFT and overlap-save) is the reference's."""
+        if self._started:
+            raise ValueError("Already started computing frames")
+        device = self.device
+        signal = np.asarray(signal)
+        ret_dtype = signal.dtype
+        sig_len = signal.shape[0]
+        num_frames = int(self.frame_counts_np([sig_len])[0])
+        if num_frames == 0:
+            return np.empty((0, self.num_coeffs), dtype=ret_dtype)
+        shift = self._frame_shift
+        bucket_len = _si._next_pow2(max(sig_len, 1))
+        max_frames = (bucket_len + shift // 2) // shift
+        buf = np.zeros(bucket_len, dtype=_NUMPY_DTYPES[self._dtype])
+        buf[:sig_len] = signal
+        spec = self._spec(_si._next_pow2(bucket_len + self._kernel["max_support"]))
+        feats = self._run(torch.tensor(buf, device=device), sig_len, max_frames, spec)
+        return feats[:num_frames].cpu().numpy().astype(ret_dtype, copy=False)
+
+    def frame_counts_np(self, lengths) -> np.ndarray:
+        """Valid frame counts per signal length (host math)."""
+        shift = self._frame_shift
+        T = self._kernel["max_support"]
+        lengths = np.asarray(lengths)
+        target = (lengths + shift // 2) // shift
+        after_pad = (target * shift + T - 1 - self._shift_eff) // shift - 1
+        return np.maximum(0, np.minimum(target, after_pad))
+
+    def compute_batch(self, signals, lengths):
+        """Batched SI features over padded signals.
+
+        ``signals``: ``(batch, max_len)`` array or tensor (int16/int8/uint8
+        move to the device as they are and are upcast there); ``lengths``:
+        ``(batch,)``.  Returns ``(feats, frame_counts)``, tensors on the
+        computer's device; rows at or past a signal's count are garbage to
+        be masked.  Padding values in ``signals`` must be zero (the
+        convolution traverses them).
+        """
+        device = self.device
+        signals = _to_device(signals, self._dtype, device)
+        if signals.dim() != 2:
+            raise ValueError(
+                f"signals must be (batch, max_len), got {tuple(signals.shape)}"
+            )
+        signals = signals.to(self._dtype)
+        batch, max_len = signals.shape
+        shift = self._frame_shift
+        T = self._kernel["max_support"]
+        max_frames = (max_len + shift // 2) // shift
+        if isinstance(lengths, torch.Tensor):
+            lengths = lengths.to(device=device, dtype=torch.int64)
+        else:
+            lengths = torch.tensor(np.asarray(lengths), dtype=torch.int64, device=device)
+        spec = self._spec(_si._next_pow2(max_len + T))
+        feats = self._run(signals, lengths, max_frames, spec)
+        target = (lengths + shift // 2) // shift
+        after_pad = (target * shift + T - 1 - self._shift_eff) // shift - 1
+        counts = torch.clamp_min(torch.minimum(target, after_pad), 0)
+        return feats, counts.to(torch.int32)
+
+    # ------------------------------------------------------------------
+    # streaming API
+    # ------------------------------------------------------------------
+    #
+    # With S raw samples seen, the counted stream holds S - shift_eff
+    # samples and frame k is emittable once counted >= (k + 2) * shift
+    # (reference: compute.py:774-891).  Frames come from a sliding float64
+    # host history of x through the same pipeline as compute_full.
+
+    def _frames_avail(self) -> int:
+        counted = self._seen - self._shift_eff
+        return max(0, counted // self._frame_shift - 1)
+
+    def compute_chunk(self, chunk: np.ndarray) -> np.ndarray:
+        resolve_device(self._device)  # no GPU and no device: raise first
+        chunk = np.asarray(chunk)
+        if self._started:
+            if chunk.dtype != self._chunk_dtype:
+                raise ValueError("Chunk does not share a type with previous chunks")
+        else:
+            if not np.issubdtype(chunk.dtype, np.floating):
+                raise ValueError("Chunk must be a float type")
+            self._chunk_dtype = chunk.dtype
+            self._started = True
+        self._hist = np.concatenate([self._hist, chunk.astype(np.float64, copy=False)])
+        self._seen += len(chunk)
+        return self._emit(self._frames_avail())
+
+    def _emit(self, f1: int) -> np.ndarray:
+        f0, shift = self._frames_done, self._frame_shift
+        T = self._kernel["max_support"]
+        if f1 <= f0:
+            return np.empty((0, self.num_coeffs), dtype=self._chunk_dtype)
+        # the x span frames [f0, f1) need: the taps reach back T - 1
+        need_start = f0 * shift + self._shift_eff - (T - 1)
+        need_end = f1 * shift + shift - 1 + self._shift_eff  # inclusive
+        bucket = _si._next_pow2(need_end - need_start + 1)
+        buf = np.zeros(bucket, dtype=_NUMPY_DTYPES[self._dtype])
+        lo = max(0, need_start)
+        hi = min(self._seen, need_end + 1)
+        if hi > lo:
+            buf[lo - need_start : hi - need_start] = self._hist[
+                lo - self._hist_start : hi - self._hist_start
+            ]
+        spec = self._spec(_si._next_pow2(bucket + T))
+        # shift_eff in the window's coordinates: y_loc[n] is y[f0*shift +
+        # n], x_loc[j] is x[need_start + j]
+        spec["shift_eff"] = f0 * shift + self._shift_eff - need_start
+        spec["energy_offset"] = spec["shift_eff"] - self._kernel["translation"]
+        # the buffer is zero past the seen samples and no emitted frame
+        # reads past them, so the whole bucket counts as valid
+        feats = self._run(torch.tensor(buf, device=self.device), bucket, f1 - f0, spec)
+        feats = feats.cpu().numpy().astype(self._chunk_dtype, copy=False)
+        self._frames_done = f1
+        # keep only the history future frames can still need
+        keep_from = max(0, f1 * shift + self._shift_eff - (T - 1))
+        if keep_from > self._hist_start:
+            self._hist = self._hist[keep_from - self._hist_start :]
+            self._hist_start = keep_from
+        return feats
+
+    def finalize(self) -> np.ndarray:
+        feats = np.empty((0, self.num_coeffs), dtype=self._chunk_dtype)
+        if self._started:
+            shift = self._frame_shift
+            total = max(self._frames_done, int(self.frame_counts_np([self._seen])[0]))
+            if total > self._frames_done:
+                # the reference zero-pads to ``target*shift + frame_length -
+                # 1 - len`` samples and keeps at most ``target`` frames
+                # (reference: compute.py:824-846)
+                pad = (total + 1) * shift + self._shift_eff - self._seen
+                if pad > 0:
+                    self._hist = np.concatenate([self._hist, np.zeros(pad)])
+                    self._seen += pad
+                feats = self._emit(total)
+        self._seen = 0
+        self._frames_done = 0
+        self._hist = np.zeros(0, dtype=np.float64)
+        self._hist_start = 0
+        self._started = False
+        return feats
+
+
+SIFrameComputer = ShortIntegrationFrameComputer
 
 
 def frame_by_frame_calculation(

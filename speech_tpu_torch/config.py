@@ -12,6 +12,7 @@ __all__ = [
     "LOG_FLOOR_VALUE",
     "FFT_MODE",
     "VALID_FFT_MODES",
+    "SI_DIGIT_PARAM_BYTE_LIMIT",
 ]
 
 EFFECTIVE_SUPPORT_THRESHOLD: float = 5e-4
@@ -28,6 +29,21 @@ LOG_FLOOR_VALUE: float = 1e-5
 (reference: config.py:52)."""
 
 VALID_FFT_MODES = ("auto", "fft", "matmul", "pallas")
+
+SI_DIGIT_PARAM_BYTE_LIMIT: int = 1 << 29  # 512 MiB
+"""Construction-time ceiling on the SI digit tiers' parameter planes.
+
+The SI ``precision='double'``/``'accurate'`` tiers store banded-Toeplitz
+convolution matrices as integer digit planes whose size scales with the
+squared filter support (``n_digits * parts * (K + 1) * num_filts * V * V``
+float32s, ``K = ceil((max_support - 1) / V)``).  Gammatone/gabor-class
+supports (hundreds of taps) cost 100-150 MiB; fbank-class SI supports
+(~7000 taps) cost ~700-850 MiB of parameter planes alone, and several
+times that again in live product buffers at production batch sizes.
+Constructors estimate the parameter bytes up front and raise a
+descriptive ``ValueError`` above this limit; raise it (or set it to 0 to
+disable the guard) if the device really has the memory.
+"""
 
 FFT_MODE: str = "auto"
 """How computers realise the DFT on the device.

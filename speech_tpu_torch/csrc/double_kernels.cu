@@ -31,15 +31,24 @@
 // Bound on an H100: the pair dots, 2 * frames * K * 2nb operations a pair
 // against the 989 TFLOP/s dense bf16 rate (about 1 ms for 'double' at 128 x
 // 15 s), plus the fp32 filter tail over each filter's span.  The block
-//   1. takes 128 frames of one signal row (64 a consumer warpgroup), so each
-//      M plane it streams from L2 (13 pairs x K x 2nb x 2 bytes, 5.3 MB at K
-//      400 and dft 512) serves 128 frames; stages the span of samples
+//   1. takes 128 frames of one signal row (64 a consumer warpgroup) and one
+//      group of filters (grid axis z), so each M plane it streams from L2
+//      (13 pairs x K x 2nb x 2 bytes, 5.3 MB at K 400 and dft 512) serves
+//      128 frames; stages the span of samples
 //      [f0 * shift, f0 * shift + 127 * shift + 16 * steps) in shared memory
 //      by cp.async (where the span does not fit, every read goes to device
 //      memory instead: kSpan = false);
 //   2. walks the bins in chunks of 64: chunk c's 128 columns are the real
 //      and mixed columns of bins [64c, 64c + 64) side by side, so that one
-//      thread's accumulator pair is one bin's;
+//      thread's accumulator pair is one bin's.  It walks only the chunks
+//      its group's filter spans touch (led by chunk 0, which carries the
+//      Nyquist value, where a filter of the group weights it): the filter
+//      sums of 128 frames take 1,056 bytes a filter of shared memory, so
+//      the launcher splits a bank into the fewest groups whose sums fit
+//      beside a ring of at least 3 stages (and the staged samples where
+//      they fit too: at K 400 and a 10 ms shift one group holds at most 83
+//      filters with them, 161 without), and a group remakes only the
+//      chunks it shares with its neighbours;
 //   3. has one thread of a producer warpgroup (which gives most of its
 //      registers to the consumers by setmaxnreg) stream, for each chunk and
 //      pair in order, the pair's M plane (bf16, packed by _pack_double in
@@ -234,11 +243,45 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[16][4], const uint32_t (&a
 }
 
 // shared memory of a block: the fixed part (barriers, ring, spectrum,
-// filter sums, per-frame values, pair table) before the sample buffer
-size_t double_fixed_bytes(int stages, int C) {
+// filter sums of a group of Cg filters, per-frame values, pair table, the
+// chunk walk) before the sample buffer
+size_t double_fixed_bytes(int stages, int Cg) {
   return kBarBytes + (size_t)stages * kSlotBytes +
-         sizeof(float) * ((size_t)kBins * kSS + 2 * (size_t)C * kFS + 3 * (size_t)kM) +
-         3 * sizeof(int) * kMaxPairs;
+         sizeof(float) * ((size_t)kBins * kSS + 2 * (size_t)Cg * kFS + 3 * (size_t)kM) +
+         3 * sizeof(int) * kMaxPairs + 4 * sizeof(int);
+}
+
+// the launch's shape: `groups` filter groups of `cg` filters (the last may
+// hold fewer), a ring of `stages`, staged samples where `span`
+struct DoublePlan {
+  int groups, cg, stages, span;
+};
+
+// the fewest filter groups whose sums fit: for each count of groups, the
+// span of samples with the deepest ring that fits, else samples from device
+// memory with the deepest ring that fits.  The ring needs at least
+// kMinStages: a consumer frees stage s - 2 only in step s, after stage s
+// has landed, so the producer must be able to fill stage s while stages
+// s - 2 and s - 1 still hold their slots.  -1 where not even one filter fits.
+int double_plan(size_t optin, int frame_shift, int K, int C, DoublePlan* plan) {
+  const int steps = ((K + kStepK - 1) / kStepK + kStageSteps - 1) / kStageSteps * kStageSteps;
+  const long long span_n = (long long)(kM - 1) * frame_shift + (long long)steps * kStepK;
+  const size_t span_bytes = sizeof(float) * (size_t)span_n;
+  for (int ng = 1; ng <= C; ++ng) {
+    const int cg = (C + ng - 1) / ng;
+    if ((C + cg - 1) / cg != ng) continue;  // the same groups as a smaller count
+    for (int s = kMaxStages; s >= kMinStages; --s)
+      if (span_n < (1LL << 30) && double_fixed_bytes(s, cg) + span_bytes <= optin) {
+        *plan = {ng, cg, s, 1};
+        return 0;
+      }
+    for (int s = kMaxStages; s >= kMinStages; --s)
+      if (double_fixed_bytes(s, cg) <= optin) {
+        *plan = {ng, cg, s, 0};
+        return 0;
+      }
+  }
+  return -1;
 }
 
 // Warpgroup 2 is the producer (its first thread works).  Warps 0-7 consume:
@@ -249,7 +292,7 @@ size_t double_fixed_bytes(int stages, int C) {
 template <bool kSpan, bool kPairs>
 __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
     const float* __restrict__ x, long long row_stride, long long n_valid,
-    int frame_shift, int num_frames, int K, int nb, int C,
+    int frame_shift, int num_frames, int K, int nb, int C, int Cg,
     const uint16_t* __restrict__ packed, int steps, const __grid_constant__ Pairs pairs,
     float cos_scale, const float* __restrict__ mscale, const float* __restrict__ mask,
     const float* __restrict__ w_hi, const float* __restrict__ w_lo,
@@ -261,9 +304,9 @@ __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
   // [stages][kStageSteps][16][2][8][8]: the packed layout, copied as it is
   unsigned char* ring = smem + kBarBytes;
   float* spec = reinterpret_cast<float*>(ring + (size_t)stages * kSlotBytes);  // [kBins][kSS]
-  float* fhi = spec + kBins * kSS;  // [C][kFS]: w_hi sums
-  float* flo = fhi + C * kFS;       // [C][kFS]: w_lo sums
-  float* scl = flo + C * kFS;       // [kM]
+  float* fhi = spec + kBins * kSS;  // [Cg][kFS]: w_hi sums of the group
+  float* flo = fhi + Cg * kFS;      // [Cg][kFS]: w_lo sums
+  float* scl = flo + Cg * kFS;      // [kM]
   float* en = scl + kM;             // [kM]
   float* nyq = en + kM;             // [kM]
   // the pair table, read once from the parameters: a dynamically indexed
@@ -271,7 +314,10 @@ __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
   int* pi = reinterpret_cast<int*>(nyq + kM);  // [kMaxPairs]
   int* pj = pi + kMaxPairs;                    // [kMaxPairs]
   float* pw = reinterpret_cast<float*>(pj + kMaxPairs);  // [kMaxPairs] 256^-(i+j+2)
-  float* xs = pw + kMaxPairs;                  // the sample buffer (kSpan)
+  // the chunk walk: [0] 1 where chunk 0 leads, [1] the first chunk of the
+  // group's spans, [2] the chunks walked
+  int* walk = reinterpret_cast<int*>(pw + kMaxPairs);
+  float* xs = reinterpret_cast<float*>(walk + 4);  // the sample buffer (kSpan)
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -281,6 +327,8 @@ __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
   const float* xrow = x + (long long)b * row_stride;
   const long long start = (long long)f0 * frame_shift;
   const int nchunks = (nb + kBins - 1) / kBins;
+  const int c0 = blockIdx.z * Cg;  // the group's filters: [c0, c0 + cg)
+  const int cg = min(Cg, C - c0);
   const int npairs = pairs.n;
 
   if (tid < npairs) {
@@ -295,7 +343,34 @@ __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (warp == 1) {
+    // the chunks the group's spans touch, led by chunk 0 where a filter of
+    // the group weights the Nyquist value and the spans start above it; a
+    // group without weights walks chunk 0 alone
+    int lo = nb, hi = 0, nq = 0;
+    for (int c = c0 + lane; c < c0 + cg; c += 32) {
+      lo = min(lo, __ldg(spans + 2 * c));
+      hi = max(hi, __ldg(spans + 2 * c + 1));
+      nq |= __ldg(w_nyq + c) != 0.f;
+    }
+    for (int o = 16; o; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      nq |= __shfl_xor_sync(0xffffffffu, nq, o);
+    }
+    if (lane == 0) {
+      // a span may end past nb (the Nyquist row, which chunk 0 carries)
+      int clo = lo / kBins, chi = (min(hi, nb) + kBins - 1) / kBins;
+      if (chi <= clo) clo = 0, chi = 1;
+      const int lead = nq && clo > 0;
+      walk[0] = lead;
+      walk[1] = clo;
+      walk[2] = chi - clo + lead;
+    }
+  }
   __syncthreads();
+  const int nwalk = walk[2];
+  auto chunk_of = [walk](int w) { return walk[0] && w == 0 ? 0 : walk[1] + w - walk[0]; };
 
   if (tid >= kConsumers) {
     // the launch bound leaves 168 registers a thread; the producer
@@ -306,7 +381,8 @@ __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
     // previous stage has been consumed
     if (tid == kConsumers) {
       int slot = 0, use = 0;
-      for (int chunk = 0; chunk < nchunks; ++chunk) {
+      for (int w = 0; w < nwalk; ++w) {
+        const int chunk = chunk_of(w);
         for (int p = 0; p < npairs; ++p) {
           const uint16_t* src =
               packed + ((long long)pj[p] * nchunks + chunk) * steps * (kStepBytes / 2);
@@ -360,6 +436,7 @@ __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
       const int bits = __float_as_int(fmaxf(m, 1e-30f));
       scl[t] = __int_as_float(((bits >> 23) + 2) << 23);
       en[t] = s;
+      nyq[t] = 0.f;  // where chunk 0 is not walked, no filter weights it
     }
   }
   consumer_sync();
@@ -514,7 +591,8 @@ __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
   };
 
   uint32_t a0[kStageSteps][4], a1[kStageSteps][4], a2[kStageSteps][4];
-  for (int chunk = 0; chunk < nchunks; ++chunk) {
+  for (int w = 0; w < nwalk; ++w) {
+    const int chunk = chunk_of(w);
     ip = iq = pp = pq = 0;
     prep(a0);
     int s = 0;
@@ -560,18 +638,19 @@ __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
     // each weight once for all its lanes and reads the spectrum without
     // bank conflicts; the sums wait in fhi / flo between chunks
     const int j0 = chunk * kBins;
-    const bool last = chunk + 1 == nchunks;
-    for (int c = warp; c < C; c += kConsumers / 32) {
+    const bool last = w + 1 == nwalk;
+    for (int c = warp; c < cg; c += kConsumers / 32) {
+      const int cc = c0 + c;  // the filter's column in the bank
       float4* fh = reinterpret_cast<float4*>(fhi + c * kFS) + lane;
       float4* fl = reinterpret_cast<float4*>(flo + c * kFS) + lane;
       const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 h = chunk ? *fh : zero, l = chunk ? *fl : zero;
-      const int ja = max(j0, __ldg(spans + 2 * c));
-      const int jb = min(min(j0 + kBins, nb), __ldg(spans + 2 * c + 1));
+      float4 h = w ? *fh : zero, l = w ? *fl : zero;
+      const int ja = max(j0, __ldg(spans + 2 * cc));
+      const int jb = min(min(j0 + kBins, nb), __ldg(spans + 2 * cc + 1));
       const float* sp = spec + lane * kFT;
       for (int j = ja; j < jb; ++j) {
-        const float vh = __ldg(w_hi + (long long)j * C + c);
-        const float vl = __ldg(w_lo + (long long)j * C + c);
+        const float vh = __ldg(w_hi + (long long)j * C + cc);
+        const float vl = __ldg(w_lo + (long long)j * C + cc);
         const float4 v = *reinterpret_cast<const float4*>(sp + (j - j0) * kSS);
         h = make_float4(fmaf(v.x, vh, h.x), fmaf(v.y, vh, h.y), fmaf(v.z, vh, h.z),
                         fmaf(v.w, vh, h.w));
@@ -581,7 +660,7 @@ __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
       if (last) {
         // hi + lo, then the rank-1 Nyquist term (row 0 of w_nyq), then the
         // log floor
-        const float wn = __ldg(w_nyq + c);
+        const float wn = __ldg(w_nyq + cc);
         const float4 q = reinterpret_cast<const float4*>(nyq)[lane];
         h = make_float4(__fadd_rn(__fadd_rn(h.x, l.x), __fmul_rn(q.x, wn)),
                         __fadd_rn(__fadd_rn(h.y, l.y), __fmul_rn(q.y, wn)),
@@ -598,14 +677,17 @@ __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
   }
 
   // the block's features, frame by frame, by coalesced stores: the energy
-  // column, then the filters from fhi
+  // column (group 0 only), then the group's filters from fhi
   consumer_sync();
   const int nc = C + energy;
+  const int e0 = energy && blockIdx.z == 0;
+  const int nw = cg + e0;  // columns this block writes
   const int nf = min(kM, num_frames - f0);
-  float* ob = out + ((long long)b * num_frames + f0) * nc;
-  for (int i = tid; i < nf * nc; i += kConsumers) {
-    const int t = i / nc;
-    const int c = i - t * nc - energy;
+  float* ob = out + ((long long)b * num_frames + f0) * nc + (e0 ? 0 : energy + c0);
+  for (int i = tid; i < nf * nw; i += kConsumers) {
+    const int t = i / nw;
+    const int col = i - t * nw;
+    const int c = col - e0;
     float v;
     if (c >= 0) {
       v = fhi[c * kFS + t];
@@ -614,14 +696,14 @@ __global__ void __launch_bounds__(kThreads, 1) double_feats_kernel(
       if (!use_power) v = sqrtf(v);
       if (use_log) v = floor_log(v, log_floor);
     }
-    ob[i] = v;
+    ob[(long long)t * nc + col] = v;
   }
 }
 
 template <bool kSpan, bool kPairs>
 cudaError_t launch_double(dim3 grid, size_t smem, cudaStream_t stream, const float* x,
                           long long row_stride, long long n_valid, int frame_shift,
-                          int num_frames, int K, int nb, int C, const uint16_t* packed,
+                          int num_frames, int K, int nb, int C, int Cg, const uint16_t* packed,
                           int steps, const Pairs& pairs, float cos_scale, const float* mscale,
                           const float* mask, const float* w_hi, const float* w_lo,
                           const float* w_nyq, const int* spans, float* out, int use_log,
@@ -632,7 +714,7 @@ cudaError_t launch_double(dim3 grid, size_t smem, cudaStream_t stream, const flo
     if (e != cudaSuccess) return e;
   }
   double_feats_kernel<kSpan, kPairs><<<grid, kThreads, smem, stream>>>(
-      x, row_stride, n_valid, frame_shift, num_frames, K, nb, C, packed, steps, pairs,
+      x, row_stride, n_valid, frame_shift, num_frames, K, nb, C, Cg, packed, steps, pairs,
       cos_scale, mscale, mask, w_hi, w_lo, w_nyq, spans, out, use_log, use_power, energy,
       log_floor, stages);
   return cudaGetLastError();
@@ -652,10 +734,10 @@ extern "C" {
 // even.  pair_i/pair_j list the n_pairs kept digit pairs in the order their
 // terms are added.  spans (C x 2 int32) bound each filter's nonzero w_hi /
 // w_lo rows as [first, last + 1).  out is (batch, num_frames, C + energy)
-// fp32.  Returns a cudaError_t; -1 when the tile does not fit in shared
-// memory (two sums of 128 frames a filter beside a ring of 3 stages: at most
-// 161 filters in the H100's 227 KB), -2 for a bad pair table, K above 512 or
-// a bad layout.
+// fp32.  The bank is split into the fewest filter groups whose sums fit in
+// shared memory (stk_double_plan), one grid slice each.  Returns a
+// cudaError_t; -1 when not even one filter's sums fit beside a ring of 3
+// stages, -2 for a bad pair table, K above 512 or a bad layout.
 int stk_double_feats(const float* x, long long batch, long long row_stride,
                      long long n_valid, int frame_shift, int num_frames, int K, int nb,
                      int C, const uint16_t* packed, int n_m, int n_pairs, const int* pair_i,
@@ -680,46 +762,48 @@ int stk_double_feats(const float* x, long long batch, long long row_stride,
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
-  // the span of samples with the deepest ring that fits; else samples from
-  // device memory, with the deepest ring that fits.  The ring needs at least
-  // kMinStages: a consumer frees stage s - 2 only in step s, after stage s
-  // has landed, so the producer must be able to fill stage s while stages
-  // s - 2 and s - 1 still hold their slots.
-  const long long span_n = (long long)(kM - 1) * frame_shift + (long long)steps * kStepK;
-  const long long span_bytes = sizeof(float) * span_n;
-  size_t smem = 0;
-  int stages = 0;
-  bool span = false;
-  for (int s = kMaxStages; s >= kMinStages && !smem; --s) {
-    const size_t need = double_fixed_bytes(s, C) + (size_t)span_bytes;
-    if (span_n < (1LL << 30) && need <= (size_t)optin) {
-      smem = need;
-      stages = s;
-      span = true;
-    }
-  }
-  for (int s = kMaxStages; s >= kMinStages && !smem; --s) {
-    if (double_fixed_bytes(s, C) <= (size_t)optin) {
-      smem = double_fixed_bytes(s, C);
-      stages = s;
-    }
-  }
-  if (!smem) return -1;
+  DoublePlan plan;
+  if (double_plan((size_t)optin, frame_shift, K, C, &plan)) return -1;
+  const size_t smem = double_fixed_bytes(plan.stages, plan.cg) +
+                      (plan.span ? sizeof(float) * ((size_t)(kM - 1) * frame_shift +
+                                                    (size_t)steps * kStepK)
+                                 : 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((num_frames + kM - 1) / kM, (unsigned)batch);
+  dim3 grid((num_frames + kM - 1) / kM, (unsigned)batch, plan.groups);
 #define STK_DOUBLE(SPAN, PAIRS)                                                               \
   launch_double<SPAN, PAIRS>(grid, smem, st, x, row_stride, n_valid, frame_shift, num_frames, K, \
-                             nb, C, packed, steps, pairs, cos_scale, mscale, mask, w_hi, w_lo,  \
-                             w_nyq, spans, out, use_log, use_power, energy, log_floor, stages)
+                             nb, C, plan.cg, packed, steps, pairs, cos_scale, mscale, mask,     \
+                             w_hi, w_lo, w_nyq, spans, out, use_log, use_power, energy,         \
+                             log_floor, plan.stages)
   // an even shift puts every fragment's sample pairs at even offsets
-  cudaError_t rc = !span ? STK_DOUBLE(false, false)
+  cudaError_t rc = !plan.span ? STK_DOUBLE(false, false)
                    : frame_shift % 2 ? STK_DOUBLE(true, false) : STK_DOUBLE(true, true);
 #undef STK_DOUBLE
   return (int)rc;
 }
 
+// The launch stft_feats_double would make for a frame shift, K and C on the
+// current device: plan[0..3] = filter groups, filters a group, ring stages,
+// staged samples (1) or not (0).  Returns 0, -1 where nothing fits, or a
+// cudaError_t.
+int stk_double_plan(int frame_shift, int K, int C, int* plan) {
+  if (K < 1 || K > kMaxK || C < 1 || frame_shift < 1) return -2;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  DoublePlan p;
+  if (double_plan((size_t)optin, frame_shift, K, C, &p)) return -1;
+  plan[0] = p.groups;
+  plan[1] = p.cg;
+  plan[2] = p.stages;
+  plan[3] = p.span;
+  return 0;
+}
+
 const char* stk_error_string(int code) {
-  if (code == -1) return "the frame tile does not fit in shared memory";
+  if (code == -1) return "not even one filter's sums fit in shared memory";
   if (code == -2) return "bad digit pair table, K above 512 or a bad layout";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -35,20 +35,30 @@
 //   2. walks the bins in chunks of 64: chunk c's 128 columns are the real and
 //      mixed columns of bins [64c, 64c + 64) side by side (the mixed column
 //      of bin 0 holds the Nyquist cosine, for even DFT sizes), so one
-//      thread's accumulator pair is one bin's (re, im);
-//   3. has one producer warp stream each chunk's hi / lo k-steps (8 k x 128
-//      columns, K-major core matrices, packed by _pack_float) into a ring of
-//      2-6 stages of 2 k-steps by bulk (TMA) copies, signalled by full / empty
-//      mbarriers;
+//      thread's accumulator pair is one bin's (re, im).  A block takes one
+//      group of filters (grid axis z) and walks only the chunks its
+//      filters' spans touch (led by chunk 0 where a filter of the group
+//      weights the Nyquist bin): the filter sums of 128 frames take 528
+//      bytes a filter, so the launcher splits a bank into the fewest groups
+//      whose sums fit beside the ring and the samples (one group holds
+//      some 290 filters at K 400);
+//   3. has one thread of a producer warpgroup (which gives most of its
+//      registers to the consumers by setmaxnreg) stream each chunk's hi /
+//      lo k-steps (8 k x 128 columns, K-major core matrices, packed by
+//      _pack_float) into a ring of 2-6 stages of 2 k-steps by bulk (TMA)
+//      copies, signalled by full / empty mbarriers;
 //   4. runs each k-step on the tensor cores: two warpgroups, 64 frames each,
 //      issue wgmma m64n128k8 with the frame operand in registers (loaded from
 //      the staged samples and split hi / lo there) and the DFT operand read
 //      from shared memory by descriptor; one stage of products stays in
 //      flight while the next is issued, the two register sets alternating
-//      by stage so that ptxas need not serialise the products; where K is
-//      long (above 512) the split passes hand their sum to fp32 registers
-//      every 32 k-steps (kFold), since the tensor cores' own fp32 adds
-//      drift over thousands of them;
+//      by stage so that ptxas need not serialise the products; the split
+//      passes hand their sum to fp32 registers after every stage (kFold),
+//      since the tensor cores' own fp32 adds truncate: summed over all of
+//      K 400 they put 'highest' up to 3e-4 from float64 on log features of
+//      narrow filters, and folding every 2 k-steps brings that to 3.6e-5,
+//      where fewer folds leave up to 2.6e-4 (tools/torch_float_fold.py
+//      times and checks the fold intervals);
 //   5. ends each chunk with its spectrum in shared memory; warp w adds the
 //      chunk's weight products for filters w, w + 8, ..., lane l for frames
 //      4l .. 4l + 3, over the filter's span of nonzero weight rows only, and
@@ -68,7 +78,9 @@
 namespace {
 
 constexpr int kConsumers = 256;                  // 2 warpgroups of products
-constexpr int kThreads = kConsumers + 32;        // and one producer warp
+constexpr int kThreads = kConsumers + 128;       // and a producer warpgroup (one thread works)
+constexpr int kConsumerRegs = 232;               // registers a consumer thread: setmaxnreg
+constexpr int kProducerRegs = 40;                // ... and a producer thread
 constexpr int kM = 128;                          // frames per block: 64 a warpgroup
 constexpr int kBins = 64;                        // bins per chunk
 constexpr int kCols = 2 * kBins;                 // chunk columns: (re, mixed) per bin
@@ -83,8 +95,9 @@ constexpr int kBarBytes = 128;                   // full and empty barriers
 constexpr int kSS = kM + 8;                      // spectrum row stride: conflict-free stores
 constexpr int kFT = 4;                           // frames of a lane's filter sums
 constexpr int kFS = kM + 4;                      // filter-sum row stride
-constexpr int kFoldSteps = 32;                   // k-steps a tensor-core sum runs at most
-                                                 // where K is long (kFold)
+constexpr int kFoldSteps = 2;                    // k-steps a split-pass tensor-core sum
+                                                 // runs at most (kFold)
+static_assert(kFoldSteps % kStageSteps == 0, "folds fall between stages");
 static_assert(kM == 32 * kFT, "a warp's lanes take a filter's frames");
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -221,23 +234,25 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[16][4], const uint32_t (&a
 struct FloatPlan {
   int stages;  // ring stages, 2..kMaxStages
   int span;    // 1: the span of samples; 0: slabs
-  int slab;    // k-steps a slab, a stretch of the walk: with span, steps (or
-               // kFoldSteps for a folded sum); else at most rs / 8
+  int slab;    // k-steps a slab, a stretch of the walk: with span, steps;
+               // else at most rs / 8
   int rs;      // buffer floats between frames
   int sh;      // skew shift (31: none)
 };
 
 // shared memory of a block: the fixed part (barriers, ring, spectrum,
-// filter sums, energy, Nyquist) before the sample buffer
-size_t float_fixed_bytes(int stages, int C) {
+// filter sums of a group of Cg filters, energy, Nyquist, the chunk walk)
+// before the sample buffer
+size_t float_fixed_bytes(int stages, int Cg) {
   return kBarBytes + (size_t)stages * kSlotBytes +
-         sizeof(float) * ((size_t)kBins * kSS + (size_t)C * kFS + 2 * (size_t)kM);
+         sizeof(float) * ((size_t)kBins * kSS + (size_t)Cg * kFS + 2 * (size_t)kM) +
+         4 * sizeof(int);
 }
 
 template <int kPasses, bool kFold>
 __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
     const float* __restrict__ x, long long row_stride, long long n_valid,
-    int frame_stride, int num_frames, int K, int half, int nb, int C,
+    int frame_stride, int num_frames, int K, int half, int nb, int C, int Cg,
     const float* __restrict__ packed, int steps, const float* __restrict__ w,
     const int* __restrict__ spans, float* __restrict__ out, int use_log,
     int use_power, int energy, float log_floor, const __grid_constant__ FloatPlan plan) {
@@ -247,10 +262,13 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
   // [stages][kStageSteps][hi, lo][16][2][8][4]: the packed layout, copied as it is
   unsigned char* ring = smem + kBarBytes;
   float* spec = reinterpret_cast<float*>(ring + (size_t)plan.stages * kSlotBytes);  // [kBins][kSS]
-  float* fsum = spec + kBins * kSS;  // [C][kFS]
-  float* en = fsum + C * kFS;        // [kM]
+  float* fsum = spec + kBins * kSS;  // [Cg][kFS]: the group's sums
+  float* en = fsum + Cg * kFS;       // [kM]
   float* nyq = en + kM;              // [kM]
-  float* xs = nyq + kM;              // the sample buffer
+  // the chunk walk: [0] 1 where chunk 0 leads, [1] the first chunk of the
+  // group's spans, [2] the chunks walked
+  int* walk = reinterpret_cast<int*>(nyq + kM);
+  float* xs = reinterpret_cast<float*>(walk + 4);  // the sample buffer
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -259,14 +277,16 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
   const int f0 = blockIdx.x * kM;
   const float* xrow = x + (long long)b * row_stride;
   const long long start = (long long)f0 * frame_stride;
-  const int nchunks = (nb + kBins - 1) / kBins;
+  const int c0 = blockIdx.z * Cg;  // the group's filters: [c0, c0 + cg)
+  const int cg = min(Cg, C - c0);
   const int sh = plan.sh;
   const int rs = plan.rs;
   auto at = [sh](int i) { return i + ((i >> sh) << 2); };
   // the slabs of K (one with span) walk back and forth, so that a chunk
-  // starts on the slab the last one ended on
+  // starts on the slab the last one ended on (w: the chunk's place in the
+  // walk)
   const int nslabs = (steps + plan.slab - 1) / plan.slab;
-  auto slab_of = [nslabs](int chunk, int i) { return chunk & 1 ? nslabs - 1 - i : i; };
+  auto slab_of = [nslabs](int w, int i) { return w & 1 ? nslabs - 1 - i : i; };
 
   if (tid == 0) {
     for (int i = 0; i < plan.stages; ++i) {
@@ -275,19 +295,49 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (warp == 1) {
+    // the chunks the group's spans touch, led by chunk 0 where a filter of
+    // the group weights the Nyquist row and the spans start above it; a
+    // group without weights walks chunk 0 alone
+    int lo = nb, hi = 0, nq = 0;
+    for (int c = c0 + lane; c < c0 + cg; c += 32) {
+      lo = min(lo, __ldg(spans + 2 * c));
+      hi = max(hi, __ldg(spans + 2 * c + 1));
+      nq |= nb < half && __ldg(w + (long long)nb * C + c) != 0.f;
+    }
+    for (int o = 16; o; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      nq |= __shfl_xor_sync(0xffffffffu, nq, o);
+    }
+    if (lane == 0) {
+      // a span may end past nb (the Nyquist row, which chunk 0 carries)
+      int clo = lo / kBins, chi = (min(hi, nb) + kBins - 1) / kBins;
+      if (chi <= clo) clo = 0, chi = 1;
+      const int lead = nq && clo > 0;
+      walk[0] = lead;
+      walk[1] = clo;
+      walk[2] = chi - clo + lead;
+    }
+  }
   __syncthreads();
+  const int nwalk = walk[2];
+  auto chunk_of = [walk](int i) { return walk[0] && i == 0 ? 0 : walk[1] + i - walk[0]; };
 
   if (tid >= kConsumers) {
     // the producer: each chunk's k-steps in order, a stage at a time; stage
     // q goes into slot q mod stages once the slot's previous stage has been
-    // consumed
-    if (lane == 0) {
+    // consumed.  The launch bound leaves 168 registers a thread; the
+    // producer warpgroup hands most of its share to the consumers, whose
+    // fold of the split passes would spill in 168
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == kConsumers) {
       constexpr int kBytes = kPasses == 3 ? kStepBytes : kPartBytes;
       int slot = 0, use = 0;
-      for (int chunk = 0; chunk < nchunks; ++chunk) {
-        const float* pc = packed + (long long)chunk * steps * (kStepBytes / 4);
+      for (int wi = 0; wi < nwalk; ++wi) {
+        const float* pc = packed + (long long)chunk_of(wi) * steps * (kStepBytes / 4);
         for (int i = 0; i < nslabs; ++i) {
-          const int kb = slab_of(chunk, i) * plan.slab;
+          const int kb = slab_of(wi, i) * plan.slab;
           for (int q = kb; q < min(steps, kb + plan.slab); q += kStageSteps) {
             if (use > 0) mbar_wait(empty + slot, (use - 1) & 1);
             mbar_expect(full + slot, kStageSteps * kBytes);
@@ -305,6 +355,11 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
     }
     return;
   }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+  // no Nyquist value where chunk 0 is not walked (no filter weights it)
+  for (int t = tid; t < kM; t += kConsumers) nyq[t] = 0.f;
 
   // the samples, staged while the producer's first copies are in flight; a
   // sample past n_valid reads as zero (its copy comes from xrow)
@@ -370,8 +425,9 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
   };
 
   // acc: the tensor cores' sum; with kFold, `part` takes it over by IEEE fp32
-  // adds after every slab, so that no sum runs over more than kFoldSteps
-  // k-steps on the tensor cores (their fp32 adds of a long K drift)
+  // adds every kFoldSteps k-steps and at each slab's end, so that no sum
+  // runs over more than kFoldSteps k-steps on the tensor cores (their fp32
+  // adds truncate)
   float acc[16][4], part[16][4];
 #pragma unroll
   for (int nt = 0; nt < 16; ++nt)
@@ -381,12 +437,27 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
       part[nt][e] = 0.f;
     }
 
+  // the tensor cores' sum so far goes to `part` (IEEE fp32 adds) and
+  // starts again from zero
+  auto fold = [&] {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        part[nt][e] = __fadd_rn(part[nt][e], acc[nt][e]);
+        acc[nt][e] = 0.f;
+      }
+  };
+
   // one ring stage: the frame fragments of its k-steps from the samples
-  // (split hi / lo), then its products; `hi` / `lo` are this stage's own
-  // registers, which the products read until they are done
+  // (split hi / lo), then (with `fold_first`, once the last stage's
+  // products are done: the fragment loads overlap them) a fold, then its
+  // products; `hi` / `lo` are this stage's own registers, which the
+  // products read until they are done
   int slot = 0, use = 0, prev = -1;  // ring slot and its use of this stage; the last one's
   auto run_stage = [&](int q, int kb, uint32_t (&hi)[kStageSteps][4],
-                       uint32_t (&lo)[kStageSteps][4]) {
+                       uint32_t (&lo)[kStageSteps][4], bool fold_first) {
 #pragma unroll
     for (int u = 0; u < kStageSteps; ++u) {
       const int k0 = (q + u - kb) * kStepK;
@@ -399,6 +470,8 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
       }
     }
     mbar_wait(full + slot, use & 1);
+    if constexpr (kFold)
+      if (fold_first) fold();
     const uint32_t b_slot = b_base + ((slot * kSlotBytes) >> 4);
     wgmma_fence();
 #pragma unroll
@@ -424,29 +497,27 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
   };
 
   uint32_t hi0[kStageSteps][4], lo0[kStageSteps][4], hi1[kStageSteps][4], lo1[kStageSteps][4];
-  for (int chunk = 0; chunk < nchunks; ++chunk) {
+  for (int wi = 0; wi < nwalk; ++wi) {
+    const int chunk = chunk_of(wi);
     for (int i = 0; i < nslabs; ++i) {
-      const int kb = slab_of(chunk, i) * plan.slab;
+      const int kb = slab_of(wi, i) * plan.slab;
       const int ke = min(steps, kb + plan.slab);
-      if (!plan.span) stage_slab(kb, chunk == 0);
+      if (!plan.span) stage_slab(kb, wi == 0);
       // the register sets alternate, and an odd last stage takes the first
       // set after the second: no path reuses a set whose products may run
       const int koff = plan.span ? 0 : kb;
       int q = kb;
+      // a fold before the stage that ends kFoldSteps k-steps of the slab
+      auto due = [&](int qs) { return kFold && qs > kb && (qs - kb) % kFoldSteps == 0; };
       for (; q + 2 * kStageSteps <= ke; q += 2 * kStageSteps) {
-        run_stage(q, koff, hi0, lo0);
-        run_stage(q + kStageSteps, koff, hi1, lo1);
+        run_stage(q, koff, hi0, lo0, due(q));
+        run_stage(q + kStageSteps, koff, hi1, lo1, due(q + kStageSteps));
       }
-      if (q < ke) run_stage(q, koff, hi0, lo0);
-      wgmma_wait<0>();
+      if (q < ke) run_stage(q, koff, hi0, lo0, due(q));
       if constexpr (kFold) {
-#pragma unroll
-        for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            part[nt][e] = __fadd_rn(part[nt][e], acc[nt][e]);
-            acc[nt][e] = 0.f;
-          }
+        fold();
+      } else {
+        wgmma_wait<0>();
       }
     }
 
@@ -482,15 +553,16 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
     // each weight once for all its lanes and reads the spectrum without
     // bank conflicts; the sums wait in fsum between chunks
     const int j0 = chunk * kBins;
-    const bool last = chunk + 1 == nchunks;
-    for (int c = warp; c < C; c += kConsumers / 32) {
+    const bool last = wi + 1 == nwalk;
+    for (int c = warp; c < cg; c += kConsumers / 32) {
+      const int cc = c0 + c;  // the filter's column in the bank
       float4* fs = reinterpret_cast<float4*>(fsum + c * kFS) + lane;
-      float4 a = chunk ? *fs : make_float4(0.f, 0.f, 0.f, 0.f);
-      const int ja = max(j0, __ldg(spans + 2 * c));
-      const int jb = min(min(j0 + kBins, nb), __ldg(spans + 2 * c + 1));
+      float4 a = wi ? *fs : make_float4(0.f, 0.f, 0.f, 0.f);
+      const int ja = max(j0, __ldg(spans + 2 * cc));
+      const int jb = min(min(j0 + kBins, nb), __ldg(spans + 2 * cc + 1));
       const float* sp = spec + lane * kFT;
       for (int j = ja; j < jb; ++j) {
-        const float wj = __ldg(w + (long long)j * C + c);
+        const float wj = __ldg(w + (long long)j * C + cc);
         const float4 v = *reinterpret_cast<const float4*>(sp + (j - j0) * kSS);
         a.x = fmaf(v.x, wj, a.x);
         a.y = fmaf(v.y, wj, a.y);
@@ -500,7 +572,7 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
       if (last) {
         // the Nyquist row of the weights (even DFT sizes: nb = half - 1; an
         // odd size has none, and its DC slot is empty), then the log floor
-        const float wn = nb < half ? __ldg(w + (long long)nb * C + c) : 0.f;
+        const float wn = nb < half ? __ldg(w + (long long)nb * C + cc) : 0.f;
         const float4 q = reinterpret_cast<const float4*>(nyq)[lane];
         a = make_float4(fmaf(q.x, wn, a.x), fmaf(q.y, wn, a.y), fmaf(q.z, wn, a.z),
                         fmaf(q.w, wn, a.w));
@@ -513,14 +585,17 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
   }
 
   // the block's features, frame by frame, by coalesced stores: the energy
-  // column, then the filters from fsum
+  // column (group 0 only), then the group's filters from fsum
   consumer_sync();
   const int nc = C + energy;
+  const int e0 = energy && blockIdx.z == 0;
+  const int nw = cg + e0;  // columns this block writes
   const int nf = min(kM, num_frames - f0);
-  float* ob = out + ((long long)b * num_frames + f0) * nc;
-  for (int i = tid; i < nf * nc; i += kConsumers) {
-    const int t = i / nc;
-    const int c = i - t * nc - energy;
+  float* ob = out + ((long long)b * num_frames + f0) * nc + (e0 ? 0 : energy + c0);
+  for (int i = tid; i < nf * nw; i += kConsumers) {
+    const int t = i / nw;
+    const int col = i - t * nw;
+    const int c = col - e0;
     float v;
     if (c >= 0) {
       v = fsum[c * kFS + t];
@@ -529,7 +604,7 @@ __global__ void __launch_bounds__(kThreads, 1) float_feats_kernel(
       if (!use_power) v = sqrtf(v);
       if (use_log) v = floor_log(v, log_floor);
     }
-    ob[i] = v;
+    ob[(long long)t * nc + col] = v;
   }
 }
 
@@ -571,10 +646,63 @@ int buf_floats(long long n, int sh) {
   return (int)(n + ((n >> sh) << 2) + 8);
 }
 
+// the plan of one filter group of Cg filters: the span of samples with the
+// deepest ring that fits; else slabs of K with a ring of three stages (two
+// where three leave no slab).  False where nothing fits.
+bool group_plan(size_t optin, int frame_stride, int steps, int Cg, FloatPlan* plan,
+                size_t* smem) {
+  *smem = 0;
+  const int span_sh = pick_skew(frame_stride);
+  const long long span_n = (long long)(kM - 1) * frame_stride + (long long)steps * kStepK;
+  for (int stages = kMaxStages; stages >= 2 && !*smem; --stages) {
+    const size_t need = float_fixed_bytes(stages, Cg) + sizeof(float) * (size_t)buf_floats(span_n, span_sh);
+    if (span_n < (1LL << 30) && need <= optin) {
+      *plan = {stages, 1, steps, frame_stride, span_sh};
+      *smem = need;
+    }
+  }
+  for (int stages = 3; stages >= 2 && !*smem; --stages) {
+    const size_t fixed = float_fixed_bytes(stages, Cg);
+    if (fixed >= optin) continue;
+    const size_t room = (optin - fixed) / sizeof(float);
+    // slabs of whole stages; the skew adds at most an eighth
+    for (int slab = (int)(room * 8 / 9 / ((size_t)kM * kStepK)) / kStageSteps * kStageSteps;
+         slab >= kStageSteps; slab -= kStageSteps) {
+      const int s = slab < steps ? slab : steps;
+      const int rs = s * kStepK;
+      const int sh = pick_skew(rs);
+      const int n = buf_floats((long long)kM * rs, sh);
+      if ((size_t)n <= room) {
+        *plan = {stages, 0, s, rs, sh};
+        *smem = fixed + sizeof(float) * (size_t)n;
+        break;
+      }
+    }
+  }
+  return *smem != 0;
+}
+
+// the fewest filter groups whose plan fits: `groups` of `cg` filters (the
+// last may hold fewer).  -1 where not even one filter fits.
+int float_plan(size_t optin, int frame_stride, int steps, int C, FloatPlan* plan,
+               size_t* smem, int* groups, int* cg) {
+  for (int ng = 1; ng <= C; ++ng) {
+    const int g = (C + ng - 1) / ng;
+    if ((C + g - 1) / g != ng) continue;  // the same groups as a smaller count
+    if (group_plan(optin, frame_stride, steps, g, plan, smem)) {
+      *groups = ng;
+      *cg = g;
+      return 0;
+    }
+  }
+  return -1;
+}
+
 template <int kPasses, bool kFold>
 cudaError_t launch_float(dim3 grid, size_t smem, cudaStream_t stream, const float* x,
                          long long row_stride, long long n_valid, int frame_stride,
-                         int num_frames, int K, int half, int nb, int C, const float* packed, int steps,
+                         int num_frames, int K, int half, int nb, int C, int Cg,
+                         const float* packed, int steps,
                          const float* w, const int* spans, float* out, int use_log,
                          int use_power, int energy, float log_floor, const FloatPlan& plan) {
   if (smem > 48 * 1024) {
@@ -584,7 +712,7 @@ cudaError_t launch_float(dim3 grid, size_t smem, cudaStream_t stream, const floa
     if (e != cudaSuccess) return e;
   }
   float_feats_kernel<kPasses, kFold><<<grid, kThreads, smem, stream>>>(
-      x, row_stride, n_valid, frame_stride, num_frames, K, half, nb, C, packed, steps, w, spans,
+      x, row_stride, n_valid, frame_stride, num_frames, K, half, nb, C, Cg, packed, steps, w, spans,
       out, use_log, use_power, energy, log_floor, plan);
   return cudaGetLastError();
 }
@@ -604,9 +732,10 @@ extern "C" {
 // DFT sizes; w's last row is the Nyquist row) and half where it is zero (odd
 // sizes).  spans (C x 2 int32) bound each filter's nonzero
 // weight rows as [first, last + 1).  passes is 3 (split operands) or 1
-// (TF32).  out is (batch, num_frames, C + energy) fp32.  Returns a
-// cudaError_t; -1 when not even a slab of one stage fits in shared memory, -2
-// for bad arguments.
+// (TF32).  out is (batch, num_frames, C + energy) fp32.  The bank is split
+// into the fewest filter groups whose sums fit in shared memory
+// (stk_float_plan), one grid slice each.  Returns a cudaError_t; -1 when not
+// even one filter fits beside a slab of one stage, -2 for bad arguments.
 int stk_float_feats(const float* x, long long batch, long long row_stride,
                     long long n_valid, int frame_stride, int num_frames, int K,
                     int half, int nb, int C, const float* packed, int steps, const float* w,
@@ -622,55 +751,50 @@ int stk_float_feats(const float* x, long long batch, long long row_stride,
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
-  FloatPlan plan = {};
-  size_t smem = 0;
-  // the span of samples with the deepest ring that fits; else slabs of K
-  // with a ring of three stages (two where three leave no slab)
-  const int span_sh = pick_skew(frame_stride);
-  const long long span_n = (long long)(kM - 1) * frame_stride + (long long)steps * kStepK;
-  for (int stages = kMaxStages; stages >= 2 && !smem; --stages) {
-    const size_t need = float_fixed_bytes(stages, C) + sizeof(float) * (size_t)buf_floats(span_n, span_sh);
-    if (span_n < (1LL << 30) && need <= (size_t)optin) {
-      plan = {stages, 1, steps, frame_stride, span_sh};
-      smem = need;
-    }
-  }
-  for (int stages = 3; stages >= 2 && !smem; --stages) {
-    const size_t fixed = float_fixed_bytes(stages, C);
-    if (fixed >= (size_t)optin) continue;
-    const size_t room = ((size_t)optin - fixed) / sizeof(float);
-    // slabs of whole stages; the skew adds at most an eighth
-    for (int slab = (int)(room * 8 / 9 / ((size_t)kM * kStepK)) / kStageSteps * kStageSteps;
-         slab >= kStageSteps; slab -= kStageSteps) {
-      const int s = slab < steps ? slab : steps;
-      const int rs = s * kStepK;
-      const int sh = pick_skew(rs);
-      const int n = buf_floats((long long)kM * rs, sh);
-      if ((size_t)n <= room) {
-        plan = {stages, 0, s, rs, sh};
-        smem = fixed + sizeof(float) * (size_t)n;
-        break;
-      }
-    }
-  }
-  if (!smem) return -1;
-  // split passes over more than 2 kFoldSteps k-steps (K above 512) fold
-  // their tensor-core sums every slab of at most kFoldSteps
-  const bool fold = passes == 3 && steps > 2 * kFoldSteps;
-  if (fold && plan.slab > kFoldSteps) plan.slab = kFoldSteps;
+  FloatPlan plan;
+  size_t smem;
+  int groups, cg;
+  if (float_plan((size_t)optin, frame_stride, steps, C, &plan, &smem, &groups, &cg))
+    return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((num_frames + kM - 1) / kM, (unsigned)batch);
+  dim3 grid((num_frames + kM - 1) / kM, (unsigned)batch, groups);
 #define STK_FLOAT(P, F)                                                                        \
   launch_float<P, F>(grid, smem, st, x, row_stride, n_valid, frame_stride, num_frames, K, half, \
-                     nb, C, packed, steps, w, spans, out, use_log, use_power, energy, log_floor, \
-                     plan)
-  cudaError_t rc = passes == 1 ? STK_FLOAT(1, false) : fold ? STK_FLOAT(3, true) : STK_FLOAT(3, false);
+                     nb, C, cg, packed, steps, w, spans, out, use_log, use_power, energy,       \
+                     log_floor, plan)
+  // the split passes fold their tensor-core sums (kFold); one TF32 pass
+  // keeps its sum, whose error is TF32's
+  cudaError_t rc = passes == 1 ? STK_FLOAT(1, false) : STK_FLOAT(3, true);
 #undef STK_FLOAT
   return (int)rc;
 }
 
+// The launch stk_float_feats would make for a frame stride, K (steps as the
+// packing gives them: ceil(K / 8) rounded up to even) and C on the current
+// device: plan[0..3] = filter groups, filters a group, ring stages, staged
+// span of samples (1) or slabs (0).  Returns 0, -1 where
+// nothing fits, or a cudaError_t.
+int stk_float_plan(int frame_stride, int K, int C, int* plan) {
+  if (K < 1 || C < 1 || frame_stride < 1) return -2;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int steps = ((K + kStepK - 1) / kStepK + kStageSteps - 1) / kStageSteps * kStageSteps;
+  FloatPlan p;
+  size_t smem;
+  int groups, cg;
+  if (float_plan((size_t)optin, frame_stride, steps, C, &p, &smem, &groups, &cg)) return -1;
+  plan[0] = groups;
+  plan[1] = cg;
+  plan[2] = p.stages;
+  plan[3] = p.span;
+  return 0;
+}
+
 const char* stk_error_string(int code) {
-  if (code == -1) return "no slab of frames fits in shared memory";
+  if (code == -1) return "not even one filter fits in shared memory";
   if (code == -2) return "bad arguments or packed layout";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

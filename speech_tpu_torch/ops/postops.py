@@ -528,9 +528,10 @@ def device_post_chain(postprocessors):
     per-utterance host application of each post-processor with its
     natural time axis.  Raises ``ValueError`` for configurations with no
     device twin (e.g. :class:`~speech_tpu_torch.post.Standardize` without
-    statistics).  PLP has no twin yet: it waits for ``ops/plp.py``.
+    statistics).
     """
     from .. import post as _post
+    from .plp import plp as _plp
 
     stages = []
     for p in postprocessors:
@@ -596,6 +597,16 @@ def device_post_chain(postprocessors):
 
             def f(x, n, num_ceps=num_ceps, lifter=lifter):
                 return dct(x, num_ceps, lifter), n
+
+        elif isinstance(p, _post.PLP):
+            center_hz = p.center_hz
+            kw = dict(
+                order=p.order, num_ceps=p.num_ceps, compress=p.compress,
+                lifter=p.lifter, eps=p.eps,
+            )
+
+            def f(x, n, center_hz=center_hz, kw=kw):
+                return _plp(x, center_hz, **kw), n
 
         elif isinstance(p, _post.Transform):
             mat = np.asarray(p.matrix)

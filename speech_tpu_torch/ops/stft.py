@@ -68,6 +68,22 @@ _I8_ACC_CUTOFF = 4  # 'accurate'
 _X_DIGITS = 5  # 30 bits below the frame peak
 _M_DIGITS = 6  # 36 bits of the float64 DFT matrices
 _PAIR_CUTOFF = 5  # keep i + j <= 5 (weight >= 64^-7 ~ 2^-42 of the scale)
+# short integration (ops/si.py): the convolution's digit tiers scale each
+# signal as a whole, not each frame, so a loud transient before quiet
+# speech needs more planes: 'double' keeps 6 base-64 x-planes and its own
+# pair budget i + j <= 5 (21 pairs)
+_SI_X_DIGITS = 6
+_SI_PAIR_CUTOFF = 5
+# SI 'accurate': base-256 digits, 5 x-planes x 5 band-matrix planes, pairs
+# cut at i + j <= 4 (15 pairs); both operands carry a one-bit scale margin
+# (|digit| <= 128), so a product over up to 8 shifted blocks of 128 sums
+# integers below 2^24 (exact in float32), and longer supports split their
+# shifts into chunks of at most 8 blocks
+_SAK_BASE = 256.0
+_SAK_X_DIGITS = 5
+_SAK_M_DIGITS = 5
+_SAK_CUTOFF = 4
+_SAK_KCHUNK = 8
 
 
 # --- host builders (numpy) ---------------------------------------------------

@@ -25,9 +25,17 @@ plain version.  Each wrapper counts its launches in ``.launches``.
 
 The float kernel runs its DFT products on the TF32 tensor cores: 'highest'
 (and None) and 'high' as three passes over operands split ``hi + lo``
-(about fp32 accuracy), 'default' as one TF32 pass (within the reference's
+(about fp32 accuracy: the passes' tensor-core sums go to fp32 registers
+after every 2 k-steps), 'default' as one TF32 pass (within the reference's
 1.5e-2 of its reduced tier); its filter product is IEEE fp32 in every tier.
 On the CPU every tier is IEEE fp32, as in JAX there.
+
+Every kernel keeps fp32 filter sums of its block's frames in shared
+memory.  B1/B3 and B4 split a bank whose sums do not fit into filter groups
+(one grid slice each, walking only the 64-bin chunks its filters touch),
+so they take any bank; :func:`float_launch_plan` and
+:func:`double_launch_plan` give the split.  B2 takes up to 1,488 filters at
+K 400 on an H100 and raises above.
 """
 
 import ctypes
@@ -53,6 +61,8 @@ from .stft import (
 )
 
 __all__ = [
+    "double_launch_plan",
+    "float_launch_plan",
     "launch_counts",
     "padded_need",
     "reset_launch_counts",
@@ -152,6 +162,18 @@ _SIGNATURES = {
         ctypes.c_float,  # log_floor
         ctypes.c_void_p,  # stream
     ],
+    "stk_float_plan": [
+        ctypes.c_int,  # frame_stride
+        ctypes.c_int,  # K
+        ctypes.c_int,  # C
+        _c_int_p,  # plan
+    ],
+    "stk_double_plan": [
+        ctypes.c_int,  # frame_shift
+        ctypes.c_int,  # K
+        ctypes.c_int,  # C
+        _c_int_p,  # plan
+    ],
 }
 # launcher -> the source (csrc/<stem>.cu) whose library exports it, beside
 # that library's own stk_error_string
@@ -159,6 +181,8 @@ _LIBRARIES = {
     "stk_float_feats": "stft_kernels",
     "stk_int8_feats": "int8_kernels",
     "stk_double_feats": "double_kernels",
+    "stk_float_plan": "stft_kernels",
+    "stk_double_plan": "double_kernels",
 }
 
 
@@ -184,6 +208,33 @@ def _launch(name: str, wrapper: str, *args):
         raise RuntimeError(
             f"{wrapper} launch failed ({rc}): " + err(rc).decode(errors="replace")
         )
+
+
+def _plan(name: str, device, frame_shift: int, frame_length: int, n_filts: int) -> dict:
+    """The launch shape the C launcher's own search settles on ``device``:
+    ``groups`` of at most ``group_filters`` filters, ``stages`` of the ring,
+    ``span`` (the samples staged once, else slabs or device memory).  The
+    launchers take the fewest filter groups whose sums fit in shared memory
+    (one up to some hundred filters, so the main path's 40 take one), and
+    raise only where not even one filter fits."""
+    fn, err = _launcher(name)
+    plan = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = fn(frame_shift, frame_length, n_filts, plan)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed ({rc}): " + err(rc).decode(errors="replace"))
+    return dict(zip(("groups", "group_filters", "stages", "span"), plan))
+
+
+def float_launch_plan(device, *, frame_shift: int, frame_length: int, n_filts: int) -> dict:
+    """:func:`_plan` of :func:`stft_feats_rows` (``frame_shift`` is the
+    frame stride; :func:`stft_feats_frames` passes ``frame_length``)."""
+    return _plan("stk_float_plan", device, frame_shift, frame_length, n_filts)
+
+
+def double_launch_plan(device, *, frame_shift: int, frame_length: int, n_filts: int) -> dict:
+    """:func:`_plan` of :func:`stft_feats_double`."""
+    return _plan("stk_double_plan", device, frame_shift, frame_length, n_filts)
 
 
 def _check_cuda(ref, **tensors):
@@ -406,7 +457,9 @@ def stft_feats_rows(
     registers (split there for 3 passes) and the DFT operand of
     :func:`_pack_float` streaming through a shared-memory ring, one 64-bin
     chunk of (cos, sin) columns at a time; each chunk's spectrum stays in
-    shared memory for the filter sums over each filter's nonzero rows.  Any
+    shared memory for the filter sums over each filter's nonzero rows.  A
+    bank whose filter sums do not fit beside the ring and the samples (some
+    290 filters at K 400) runs in filter groups, one grid slice each.  Any
     frame shift and ``K`` work; the TPU's ``shift % 8`` gate does not
     apply.
     """
@@ -963,7 +1016,10 @@ def stft_feats_double(
     cores sum each dot in fp32 exactly (measured by
     ``tools/torch_wgmma_probe.py``: integer sums up to 2^24), and each
     pair's term adds into the fp32 accumulator in pair order.  Frames and
-    digit planes never reach device memory.
+    digit planes never reach device memory.  A bank whose filter sums do
+    not fit beside a ring of 3 stages (161 filters at K 400) runs in filter
+    groups, one grid slice each; every filter's sum runs over its chunks in
+    the same order, so the bits do not depend on the split.
     """
     padded = padded.to(torch.float32)
     if padded.dim() != 2:

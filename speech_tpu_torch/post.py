@@ -6,8 +6,7 @@ src/pydrobert/speech/post.py) in numpy, with tensor twins in
 :mod:`speech_tpu_torch.ops.postops` for on-device pipelines.
 
 Not ported yet: reading statistics or a transform from a file
-(``rfilename=``) waits for the port of ``io/``, and :class:`PLP` and
-:class:`VADTrim` wait for ``ops/plp.py`` and ``ops/vad.py``; each raises
+(``rfilename=``) waits for the port of ``io/`` and raises
 :class:`NotImplementedError` naming its ROADMAP item.
 """
 
@@ -41,7 +40,6 @@ _NO_IO = (
     "reading {what} from a file waits for the port of io/ (ROADMAP queue A "
     "item 8); pass them in memory instead"
 )
-_NOT_YET = "{what} waits for the port of {module} (ROADMAP queue A item 11)"
 
 
 class PostProcessor(AliasedFactory):
@@ -571,16 +569,83 @@ class DCT(PostProcessor):
 
 
 class PLP(PostProcessor):
-    """Perceptual linear prediction cepstra from band powers: not ported
-    yet (waits for ``ops/plp.py``, ROADMAP queue A item 11)."""
+    """Perceptual linear prediction cepstra from band powers.
+
+    Applied to *linear power* filter-bank features (a computer built with
+    ``use_log=False, use_power=True``) this gives PLP cepstra, Kaldi
+    ``compute-plp-feats``-style (Hermansky 1990): equal-loudness weighting
+    at the bank's center frequencies, cube-root loudness compression,
+    autocorrelation by inverse cosine transform, Levinson-Durbin, LPC ->
+    liftered cepstra with ``c[0] = log`` residual energy.  The tensor twin
+    is :func:`speech_tpu_torch.ops.plp.plp`.
+
+    Parameters
+    ----------
+    bank
+        The filter bank the features came from (a
+        :class:`speech_tpu_torch.filters.LinearFilterBank`, or its config
+        dict or name): it supplies the per-band center frequencies.
+        Alternatively pass ``center_hz``.
+    center_hz
+        Explicit per-band center frequencies (mutually exclusive with
+        ``bank``).
+    order, num_ceps, compress, lifter, eps
+        See :func:`speech_tpu_torch.ops.plp.plp`.
+    """
 
     aliases = {"plp"}
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_YET.format(what="PLP", module="ops/plp.py"))
+    def __init__(
+        self,
+        bank=None,
+        center_hz=None,
+        order: int = 12,
+        num_ceps: int = 13,
+        compress: float = 1.0 / 3.0,
+        lifter: float = 22.0,
+        eps: float = 1e-10,
+    ):
+        from .alias import alias_factory_subclass_from_arg
+        from .filters import LinearFilterBank
+        from .ops.plp import _validate
 
-    def apply(self, features, axis=-1, in_place=False):  # pragma: no cover
-        raise NotImplementedError
+        if (bank is None) == (center_hz is None):
+            raise ValueError("pass exactly one of bank= or center_hz=")
+        if bank is not None:
+            bank = alias_factory_subclass_from_arg(LinearFilterBank, bank)
+            center_hz = bank.centers_hz
+        self.center_hz = tuple(float(f) for f in center_hz)
+        _validate(len(self.center_hz), order, num_ceps, compress, lifter)
+        self.order = int(order)
+        self.num_ceps = int(num_ceps)
+        self.compress = float(compress)
+        self.lifter = float(lifter)
+        self.eps = float(eps)
+
+    def apply(
+        self, features: np.ndarray, axis: int = -1, in_place: bool = False
+    ) -> np.ndarray:
+        from .ops.plp import plp_np
+
+        features = np.asarray(features)
+        axis = axis % max(features.ndim, 1)
+        if features.shape[axis] != len(self.center_hz):
+            raise RuntimeError(
+                f"expected {len(self.center_hz)} bands along axis {axis}, "
+                f"got {features.shape[axis]} (PLP applies to the bank's "
+                "linear power outputs, before any width-changing op)"
+            )
+        moved = np.moveaxis(features.astype(np.float64, copy=False), axis, -1)
+        out = plp_np(
+            moved,
+            self.center_hz,
+            order=self.order,
+            num_ceps=self.num_ceps,
+            compress=self.compress,
+            lifter=self.lifter,
+            eps=self.eps,
+        )
+        return np.moveaxis(out, -1, axis).astype(features.dtype, copy=False)
 
 
 class Splice(PostProcessor):
@@ -695,13 +760,67 @@ class Transform(PostProcessor):
 
 
 class VADTrim(PostProcessor):
-    """Drop unvoiced frames by energy VAD: not ported yet (waits for
-    ``ops/vad.py``, ROADMAP queue A item 11)."""
+    """Drop unvoiced frames by energy VAD (Kaldi ``compute-vad`` +
+    ``select-voiced-frames`` fused).
+
+    The decision runs :func:`speech_tpu_torch.ops.vad.energy_vad_np` over
+    the log-energy column (``energy_idx``; the computers'
+    ``include_energy`` convention puts it first) of a ``(time,
+    features)`` matrix and keeps the voiced rows.
+    """
 
     aliases = {"vad_trim", "vad"}
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_YET.format(what="VADTrim", module="ops/vad.py"))
+    def __init__(
+        self,
+        energy_threshold: float = 5.0,
+        energy_mean_scale: float = 0.5,
+        frames_context: int = 0,
+        proportion_threshold: float = 0.6,
+        energy_idx: int = 0,
+        time_axis: int = 0,
+    ):
+        if frames_context < 0:
+            raise ValueError(
+                f"frames_context must be >= 0, got {frames_context}"
+            )
+        if not 0.0 < proportion_threshold < 1.0:
+            raise ValueError(
+                f"proportion_threshold must be in (0, 1), got "
+                f"{proportion_threshold}"
+            )
+        if energy_mean_scale < 0:
+            raise ValueError(
+                f"energy_mean_scale must be >= 0, got {energy_mean_scale}"
+            )
+        self.energy_threshold = float(energy_threshold)
+        self.energy_mean_scale = float(energy_mean_scale)
+        self.frames_context = int(frames_context)
+        self.proportion_threshold = float(proportion_threshold)
+        self.energy_idx = int(energy_idx)
+        self.time_axis = time_axis
 
-    def apply(self, features, axis=-1, in_place=False):  # pragma: no cover
-        raise NotImplementedError
+    def apply(
+        self, features: np.ndarray, axis: int = -1, in_place: bool = False
+    ) -> np.ndarray:
+        from .ops.vad import energy_vad_np
+
+        features = np.asarray(features)
+        if features.ndim != 2:
+            raise RuntimeError(
+                f"VADTrim expects (time, features) matrices, got shape "
+                f"{features.shape}"
+            )
+        axis = axis % 2
+        time_axis = self.time_axis % 2
+        if axis == time_axis:
+            raise RuntimeError(f"feature and time axes are the same ({axis})")
+        energy = np.moveaxis(features, time_axis, 0)[:, self.energy_idx]
+        voiced = energy_vad_np(
+            np.asarray(energy, np.float64),
+            energy_threshold=self.energy_threshold,
+            energy_mean_scale=self.energy_mean_scale,
+            frames_context=self.frames_context,
+            proportion_threshold=self.proportion_threshold,
+        )
+        return np.compress(voiced, features, axis=time_axis)

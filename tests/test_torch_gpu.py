@@ -110,19 +110,23 @@ def test_float_kernels_match_plain(shape, include_energy, use_power, use_log, pr
 def test_float_kernel_repeats_bitwise(precision, frame_length_ms):
     """No atomics and a fixed order of every sum: 100 calls on one ragged
     int16 batch through the float kernel give the same bits, within the
-    tier's tolerance of the CPU."""
+    tier's tolerance of float64.  Not of the CPU's float32 plain path: on
+    these rows it read 1.78e-4 from float64 in one full run of this file
+    (9.95e-7 in others; the card read 7.41e-7 in both), so it cannot hold
+    the card to 1e-4."""
     dev = _device()
     rows = _int8_rows("silence-int16", 24000)
     lens = np.array([24000, 19000, 24000])
-    kw = dict(frame_length_ms=frame_length_ms, frame_shift_ms=10, precision=precision,
-              fft_mode="pallas", use_log=True, use_power=False)
-    gpu = STFTFrameComputer(dict(BANK), device=dev, **kw)
-    want, want_n = STFTFrameComputer(dict(BANK), device="cpu", **kw).compute_batch(rows, lens)
+    kw = dict(frame_length_ms=frame_length_ms, frame_shift_ms=10, use_log=True, use_power=False)
+    gpu = STFTFrameComputer(dict(BANK), device=dev, precision=precision, fft_mode="pallas", **kw)
+    want, want_n = STFTFrameComputer(dict(BANK), device="cpu", dtype="float64", **kw).compute_batch(
+        rows.astype(np.float64), lens
+    )
     K.reset_launch_counts()
     first, _ = gpu.compute_batch(rows, lens)
     assert K.launch_counts()["stft_feats_rows"] == 1
     for row, m in enumerate(want_n.tolist()):
-        _close(first[row, :m].cpu(), want[row, :m], FLOAT_TIERS[precision][0], True)
+        _close(first[row, :m].cpu().double(), want[row, :m], FLOAT_TIERS[precision][0], True)
     differ = sum(not torch.equal(gpu.compute_batch(rows, lens)[0], first) for _ in range(100))
     assert differ == 0, f"{differ} of 100 calls differ from the first"
 
@@ -320,36 +324,140 @@ def test_double_kernel_sample_paths(shape, precision):
     _close(got, K.stft_feats_double_plain(padded, params, **kw), TOL_INT8, True)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("num_filts", [161, 162])
-def test_double_kernel_filter_limit(num_filts):
-    """B4 keeps two fp32 sums of its 128 frames a filter in shared memory
-    beside a ring of at least 3 stages: 161 filters fit (the samples then
-    read from device memory, the ring at its least depth) and match the
-    plain version; 162 do not, and the call raises with nothing run in the
-    kernel's place."""
-    dev = _device()
+def _bank_case(dev, num_filts, seed, **kw):
+    """``(computer, padded rows, kwargs of a kernel call)`` for a bank of
+    ``num_filts`` filters at the main shape (16 kHz, 25 ms, 10 ms, dft
+    512)."""
     tc = STFTFrameComputer(
         dict(BANK, num_filts=num_filts), frame_length_ms=25, frame_shift_ms=10, device=dev,
-        precision="double",
+        **kw,
     )
     n = 9000
-    x = torch.tensor(np.random.RandomState(88).randn(3, n).astype(np.float32), device=dev)
+    x = torch.tensor(np.random.RandomState(seed).randn(3, n).astype(np.float32), device=dev)
     padded = TF.pad_signal_full(x, tc.frame_length, tc._pad_left)
-    kw = dict(
+    call = dict(
         num_frames=TF.frame_count_np(n, tc.frame_length, tc.frame_shift),
-        frame_length=tc.frame_length, frame_shift=tc.frame_shift, dft_size=tc.dft_size,
+        frame_length=tc.frame_length, frame_shift=tc.frame_shift,
         use_power=False, use_log=True, include_energy=True, log_floor=1e-5,
     )
+    return tc, padded, call
+
+
+def _one_group_limit(plan_of):
+    """The most filters ``plan_of(n)`` keeps in one group."""
+    lo, hi = 1, 4096
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if plan_of(mid)["groups"] == 1:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_filts", [161, 162, 370, 512])
+def test_double_kernel_filter_limit(num_filts):
+    """B4 keeps two fp32 sums of its 128 frames a filter in shared memory
+    beside a ring of at least 3 stages, so past 161 filters (the samples
+    then read from device memory, the ring at its least depth) it splits
+    the bank into filter groups, one grid slice each, every group walking
+    only the 64-bin chunks its filters touch.  Every bank matches the plain
+    version; the main path's 40 filters stay one group with staged
+    samples."""
+    dev = _device()
+    tc, padded, kw = _bank_case(dev, num_filts, 88, precision="double")
+    kw["dft_size"] = tc.dft_size
+    plan = functools.partial(
+        K.double_launch_plan, dev, frame_shift=tc.frame_shift, frame_length=tc.frame_length
+    )
+    assert _one_group_limit(lambda c: plan(n_filts=c)) == 161
+    assert plan(n_filts=40) == dict(groups=1, group_filters=40, stages=8, span=1)
+    groups = plan(n_filts=num_filts)["groups"]
+    assert (groups == 1) == (num_filts <= 161), groups
     K.reset_launch_counts()
-    if num_filts > 161:
-        with pytest.raises(RuntimeError, match="does not fit in shared memory"):
-            K.stft_feats_double(padded, tc.params, **kw)
-        assert K.launch_counts()["stft_feats_double"] == 0
-        return
     got = K.stft_feats_double(padded, tc.params, **kw)
     assert K.launch_counts()["stft_feats_double"] == 1
     _close(got, K.stft_feats_double_plain(padded, tc.params, **kw), TOL_INT8, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", sorted(DOUBLE_TIERS))
+def test_double_kernel_filter_groups_all_columns(precision):
+    """370 filters in groups, power features without log or energy: every
+    column (the Nyquist-weighted top filter in the last group, the lowest
+    in the first) matches the plain version."""
+    dev = _device()
+    tc, padded, kw = _bank_case(dev, 370, 89, precision="double", use_power=True)
+    kw.update(dft_size=tc.dft_size, use_power=True, use_log=False, include_energy=False,
+              **DOUBLE_TIERS[precision])
+    got = K.stft_feats_double(padded, tc.params, **kw)
+    _close(got, K.stft_feats_double_plain(padded, tc.params, **kw), TOL_INT8, False)
+
+
+@pytest.mark.cuda
+def test_float_kernel_filter_limit():
+    """B1/B3 keep one fp32 sum of 128 frames a filter in shared memory;
+    the one-group limit at K 400 is measured here (and in ROADMAP.md), and
+    banks past it split into filter groups: the limit, one filter more,
+    370 and 512 filters all hold within TOL_FLOAT of float64 through both
+    routes.  The reference is float64, not the fp32 plain version: on such
+    banks of narrow filters the fp32 plain version is itself up to 9.4e-5
+    from float64 on log features (tools/torch_float_fold.py), so two fp32
+    roundings would be compared.  The main path's 40 filters stay one group
+    with staged samples."""
+    dev = _device()
+    plan = functools.partial(K.float_launch_plan, dev, frame_shift=160, frame_length=400)
+    limit = _one_group_limit(lambda c: plan(n_filts=c))
+    assert 200 <= limit < 370, limit
+    assert plan(n_filts=40)["groups"] == 1 and plan(n_filts=40)["span"] == 1
+    for num_filts in (limit, limit + 1, 370, 512):
+        assert (plan(n_filts=num_filts)["groups"] == 1) == (num_filts <= limit)
+        tc, padded, kw = _bank_case(dev, num_filts, 90)
+        c64 = STFTFrameComputer(
+            dict(BANK, num_filts=num_filts), frame_length_ms=25, frame_shift_ms=10,
+            device=dev, dtype="float64",
+        )
+        frames = TF.frame_padded(
+            padded, kw["num_frames"], tc.frame_length, tc.frame_shift
+        ).contiguous()
+        spec = {k: kw[k] for k in ("use_power", "use_log", "include_energy", "log_floor")}
+        want = TS.stft_feats_from_frames(
+            frames.double(), c64.params, dft_size=c64.dft_size, **spec
+        ).float()
+        K.reset_launch_counts()
+        _close(K.stft_feats_rows(padded, tc.params, precision="highest", **kw), want,
+               TOL_FLOAT, True)
+        _close(K.stft_feats_frames(frames, tc.params, precision="highest", **spec), want,
+               TOL_FLOAT, True)
+        counts = K.launch_counts()
+        assert (counts["stft_feats_rows"], counts["stft_feats_frames"]) == (1, 1), num_filts
+
+
+# the most filters B2 takes at K 400 / dft 512: 16-frame tiles, a ring of
+# two stages and one k-step of planes beside two fp32 sums of 16 frames a
+# filter fill the H100's 232,448 bytes (csrc/int8_kernels.cu:int8_smem_bytes)
+INT8_FILTER_LIMIT = 1488
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [0, 1], ids=["limit", "one-more"])
+def test_int8_kernel_filter_limit(extra):
+    """B2 at its largest bank matches the plain version; one filter more
+    does not fit, and the call raises with nothing run in the kernel's
+    place."""
+    dev = _device()
+    tc, padded, kw = _bank_case(dev, INT8_FILTER_LIMIT + extra, 91, precision="double")
+    kw["dft_size"] = tc.dft_size
+    K.reset_launch_counts()
+    if extra:
+        with pytest.raises(RuntimeError, match="not one k-step"):
+            K.stft_feats_int8(padded, tc.params, **kw)
+        assert K.launch_counts()["stft_feats_int8"] == 0
+        return
+    got = K.stft_feats_int8(padded, tc.params, **kw)
+    assert K.launch_counts()["stft_feats_int8"] == 1
+    _close(got, K.stft_feats_int8_plain(padded, tc.params, **kw), TOL_INT8, True)
 
 
 @pytest.mark.cuda

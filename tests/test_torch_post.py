@@ -121,10 +121,13 @@ def test_not_ported_paths_raise():
         tpost.Standardize("stats.npy")
     with pytest.raises(NotImplementedError, match="item 8"):
         tpost.Transform("lda.npy")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_factory(tpost.PostProcessor, {"name": "plp", "center_hz": [100.0, 200.0]})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_factory(tpost.PostProcessor, "vad_trim")
+    # PLP and VADTrim are ported (ops/plp.py, ops/vad.py): they build
+    assert isinstance(
+        t_factory(tpost.PostProcessor, {"name": "plp", "center_hz": [100.0, 200.0],
+                                        "order": 2, "num_ceps": 3}),
+        tpost.PLP,
+    )
+    assert isinstance(t_factory(tpost.PostProcessor, "vad_trim"), tpost.VADTrim)
     with pytest.raises(TypeError):
         tpost.Standardize(dtype="float32")
     with pytest.raises(ValueError):

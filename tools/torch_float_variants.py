@@ -12,15 +12,21 @@ kernel's library, so every variant runs through the same wrapper:
 - ``noskew``: the sample buffer without its skew (the launcher finds no
   skew shift better than none); its features must equal the kernel's bit
   for bit, since the skew moves only addresses;
+- ``producerwarp``: one producer warp in place of the producer
+  warpgroup that hands most of its registers to the consumers by
+  ``setmaxnreg`` (40 for it, 232 for each consumer thread); the consumers
+  then keep the 168 registers of the launch bound and the split-pass fold
+  spills; the same bits;
 - ``hionly``: the producer copies only the ``hi`` half of each k-step
   (half the operand bytes read from L2); the ``lo`` products read stale
   shared memory, so only its time means anything.
 
 Cases are the main path (128 x 15 s, 25 ms frames) at a 10 ms and a
 10.25 ms shift, for rows (B1) and frames (B3), and 150 ms frames (K 2400)
-on 16 x 15 s. Each case runs kernel, noskew, noskew, kernel (and hionly on
-the first case) and prints the median milliseconds of 20 calls of each,
-by CUDA events, with the card's name and power limit first.
+on 16 x 15 s. Each case runs kernel, noskew, producerwarp, producerwarp,
+noskew, kernel (and hionly on the first case) and prints the median
+milliseconds of 20 calls of each, by CUDA events, with the card's name and
+power limit first.
 """
 
 import os
@@ -42,7 +48,16 @@ EDITS = {
         "constexpr int kBytes = kPasses == 3 ? kStepBytes : kPartBytes;",
         "constexpr int kBytes = kPartBytes;",
     )],
+    "producerwarp": [
+        ("constexpr int kThreads = kConsumers + 128;       // and a producer warpgroup (one thread works)",
+         "constexpr int kThreads = kConsumers + 32;"),
+        ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" ::"n"(kProducerRegs));\n'
+         "    if (tid == kConsumers) {",
+         "    if (lane == 0) {"),
+        ('  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kConsumerRegs));\n', ""),
+    ],
 }
+SAME_BITS = ("noskew", "producerwarp")  # variants that must give the kernel's bits
 BANK = {"name": "fbank", "num_filts": 40, "sampling_rate": 16000}
 LOG = dict(use_log=True, use_power=False, include_energy=True, log_floor=1e-5)
 
@@ -83,17 +98,21 @@ def main():
     ]
     for label, fn, hionly in cases:
         outs, times = {}, {}
-        for name in ("kernel", "noskew", "noskew", "kernel") + (("hionly",) if hionly else ()):
+        order = ("kernel", *SAME_BITS, *SAME_BITS[::-1], "kernel")
+        for name in order + (("hionly",) if hionly else ()):
             use("stft_kernels", libs[name])
             outs.setdefault(name, fn().clone())
             times.setdefault(name, []).append(cuda_ms(fn))
-        same = torch.equal(outs["kernel"], outs["noskew"])
-        line = f"{label}: kernel {times['kernel']} ms, noskew {times['noskew']} ms, same bits {same}"
+        same = {v: torch.equal(outs["kernel"], outs[v]) for v in SAME_BITS}
+        line = f"{label}: kernel {times['kernel']} ms, " + ", ".join(
+            f"{v} {times[v]} ms (same bits {same[v]})" for v in SAME_BITS
+        )
         if hionly:
             line += f", hionly {times['hionly']} ms"
         print(line, flush=True)
-        if not same:
-            sys.exit(f"{label}: the skew changed the features")
+        for v, ok in same.items():
+            if not ok:
+                sys.exit(f"{label}: {v} changed the features")
     use("stft_kernels", libs["kernel"])
 
 
