@@ -36,16 +36,34 @@ Phases (each passes or the script exits non-zero):
    a float64 CPU run of the port;
 9. PLP and VADTrim through ``device_post_chain`` on the card against the
    same chain on the CPU;
-10. print the kernels line and, last, the device line.
+10. pitch at ``bench.py``'s width (``pitch_feats`` on 32 x 10 s of the
+    tones ``bench.py:310-320`` builds), timed, its Viterbi loop timed
+    apart, against a float64 CPU run of the port;
+11. resampling (16 to 8 kHz), speed perturbation (0.9, 1.1),
+    reverberation (a 0.3 s RIR) and noise at 10 dB on 128 x 15 s, timed,
+    each against a float64 CPU run of the port;
+12. ``feats_to_signal`` on 8 x 5 s of 'highest' features (64 iterations),
+    timed, and at 4 iterations against a float64 CPU run;
+13. the file path: ``read_signal`` on ``tests/audio`` (every ``.sph``
+    bit-equal to its ``.wav`` twin), statistics written to a ``.npy`` and
+    read back by ``Standardize(rfilename=)``, then preemphasis,
+    ``compute_batch`` at 'double' and standardization on the card, bitwise
+    equal to the same chain on the arrays held in memory;
+14. print the kernels line and, last, the device line.
+
+B2 and B4 also run on banks wider than one filter group (phases 3-4):
+B2 at 1,489 and 2,978 filters, both tiers, on 16 x 15 s.
 
 It imports torch, numpy and ``speech_tpu_torch`` only.
 """
 
+import glob
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import wave
 
@@ -79,6 +97,15 @@ SI_BANKS = {
     for name in ("gammatone", "gabor")
 }
 SI_BATCH, SI_SECONDS = 32, 10
+PITCH_BATCH, PITCH_SECONDS = 32, 10  # bench.py:185 (_pitch_throughput)
+TOL_PITCH = 1e-3  # f0 (relative) on voiced frames and the POV column
+TOL_SIGNAL = 1e-5  # float32 vs float64 signal ops (tests/test_resample.py:44)
+# feats_to_signal, 4 iterations, the card's float64 run vs the CPU's; in
+# float32 Griffin-Lim's phase projections amplify rounding past 1e-4 (on
+# the CPU too), so the float32 difference is printed beside it
+TOL_INVERT = 1e-4
+INT8_WIDE = (1489, 2978)  # one filter past B2's one-group limit, and twice it
+CPU_ROWS = 8  # rows the float64 CPU references of phase 11 compute
 SOURCE = "speech_tpu_torch/csrc/stft_kernels.cu"  # B1, B3
 INT8_SOURCE = "speech_tpu_torch/csrc/int8_kernels.cu"  # B2
 DOUBLE_SOURCE = "speech_tpu_torch/csrc/double_kernels.cu"  # B4
@@ -139,9 +166,14 @@ def main():
     from speech_tpu_torch import pre
     from speech_tpu_torch import post
     from speech_tpu_torch.compute import SIFrameComputer, STFTFrameComputer
+    from speech_tpu_torch.io import read_signal
     from speech_tpu_torch.ops import _build
+    from speech_tpu_torch.ops import augment
     from speech_tpu_torch.ops import framing as F
+    from speech_tpu_torch.ops import invert
+    from speech_tpu_torch.ops import pitch
     from speech_tpu_torch.ops import postops
+    from speech_tpu_torch.ops import resample
     from speech_tpu_torch.ops import stft_kernels as K
     from speech_tpu_torch.ops.vad import energy_vad
 
@@ -377,6 +409,32 @@ def main():
         check(err <= TOL_INT8, f"stft_feats_double at {num_filts} filters disagrees: {err}")
         del got, w_pad
 
+    # B2 on banks wider than one group's filter sums; the main path's 40
+    # filters stay one group
+    plan40 = K.int8_launch_plan(dev, frame_shift=fs, frame_length=fl, n_filts=40)
+    print(f"stft_feats_int8 plan at 40 filters: {plan40}", flush=True)
+    check(plan40["groups"] == 1, f"B2 at 40 filters runs as {plan40['groups']} groups")
+    for num_filts in INT8_WIDE:
+        plan = K.int8_launch_plan(dev, frame_shift=fs, frame_length=fl, n_filts=num_filts)
+        check(plan["groups"] > 1, f"B2 at {num_filts} filters ran as one group")
+        for precision in ("double", "accurate"):
+            cw = STFTFrameComputer(dict(BANK, num_filts=num_filts), device=dev,
+                                   **{**MAIN, "precision": precision})
+            w_pad = F.pad_signal_full(wide_rows, fl, cw._pad_left)
+            w_kw = dict(num_frames=mf, frame_length=fl, frame_shift=fs, dft_size=cw.dft_size,
+                        **LOG_SPEC)
+            got = K.stft_feats_int8(w_pad, cw.params, **w_kw)
+            err = (got - K.stft_feats_int8_plain(w_pad, cw.params, **w_kw)).abs().max().item()
+            ms = cuda_ms(lambda: K.stft_feats_int8(w_pad, cw.params, **w_kw), reps=3)
+            print(f"stft_feats_int8 [{precision}] {num_filts} filters on 16 x 15 s: "
+                  f"{plan['groups']} groups x {plan['group_filters']} filters "
+                  f"({plan['tile']}-frame tiles, slab {plan['slab']} k-steps), {ms:.3f} ms, "
+                  f"vs plain max abs {err:.3e} (tol {TOL_INT8:g})", flush=True)
+            check(err <= TOL_INT8, f"stft_feats_int8 [{precision}] at {num_filts} filters "
+                                   f"disagrees: {err}")
+            del got, w_pad, cw
+    torch.cuda.empty_cache()
+
     # 5. the main path at full size; counts from 0 just before, read after
     paths = [
         ("double (auto)", computer(precision="double"), sigs, full),
@@ -544,7 +602,167 @@ def main():
     check(plp_err <= TOL_FLOAT, f"PLP/VAD chain disagrees with the CPU: {plp_err}")
     del plp_feats, card_out, chain_sigs
 
-    # 10. the kernels line, the card, the device line
+    # 10. pitch at bench.py's width: tones of 100 + 9b Hz plus 0.05 noise
+    # (seed 0), full lengths; the card in float32 against the port's
+    # float64 CPU run on the same signals
+    p_rng = np.random.RandomState(0)
+    t = np.arange(PITCH_SECONDS * RATE) / RATE
+    p_host = np.stack([np.sin(2 * np.pi * (100.0 + 9.0 * b) * t) + 0.05 * p_rng.randn(t.size)
+                       for b in range(PITCH_BATCH)]).astype(np.float32)
+    p_sigs = torch.tensor(p_host, device=dev)
+    p_len = torch.full((PITCH_BATCH,), t.size, dtype=torch.int64, device=dev)
+    feats_p, counts_p = pitch.pitch_feats(p_sigs, RATE, lengths=p_len, return_valid=True)
+    torch.cuda.synchronize()
+    pitch_ms = cuda_ms(lambda: pitch.pitch_feats(p_sigs, RATE, lengths=p_len))
+    # the Viterbi loop alone, on the same NCCFs
+    work_rate, up, down, window, shift, tables = pitch._work_geometry(
+        RATE, 50.0, 400.0, 25.0, 10.0, 4000.0, 0.1, 0.01)
+    low = pitch._lowpass(resample.resample(p_sigs, up, down), work_rate, 1000.0)
+    full_len = torch.full((16,), low.shape[-1], device=dev)
+    nccf_p = torch.cat([pitch._nccf_1d(low[i : i + 16], full_len, window, shift, tables, 1.0)[0]
+                        for i in range(0, PITCH_BATCH, 16)])
+    tmat = pitch._const(tables[4], nccf_p)
+    nc = torch.movedim(nccf_p, -2, 0).contiguous()
+    viterbi_ms = cuda_ms(lambda: pitch._viterbi(nc, tmat))
+    track64 = pitch.kaldi_pitch(p_host.astype(np.float64), RATE, device="cpu")
+    feats64 = pitch.pitch_feats_from_track(track64)
+    track32 = pitch.kaldi_pitch(p_sigs, RATE, lengths=p_len)
+    voiced = (track64.nccf > 0.5) & track64.valid
+    close = torch.isclose(track32.f0.cpu().double(), track64.f0, rtol=TOL_PITCH, atol=0)[voiced]
+    share = close.float().mean().item()
+    pov_err = (feats_p[..., 0].cpu().double() - feats64[..., 0]).abs().max().item()
+    print(f"pitch_feats {PITCH_BATCH} x {PITCH_SECONDS} s: {pitch_ms:.3f} ms median, "
+          f"{PITCH_BATCH * PITCH_SECONDS / (pitch_ms / 1e3):.0f} audio-s/s; frames "
+          f"{int(counts_p.sum())} (CPU {int(track64.valid.sum())}), voiced on the CPU "
+          f"{int(voiced.sum())}, f0 within rtol {TOL_PITCH:g} on {int(close.sum())} "
+          f"({100 * share:.2f}%); POV column max abs {pov_err:.3e} (tol {TOL_PITCH:g})",
+          flush=True)
+    print(f"pitch Viterbi loop ({nc.shape[0]} frames, [{PITCH_BATCH}, {nc.shape[-1]}, "
+          f"{nc.shape[-1]}] a step): {viterbi_ms:.3f} ms, {100 * viterbi_ms / pitch_ms:.1f}% "
+          f"of pitch_feats", flush=True)
+    check(tuple(feats_p.shape) == (PITCH_BATCH, track64.f0.shape[-1], 3),
+          f"pitch_feats: shape {tuple(feats_p.shape)}")
+    check(bool(torch.isfinite(feats_p).all()), "pitch_feats: non-finite values")
+    check(torch.equal(counts_p.cpu(), track64.valid.sum(-1)), "pitch frame counts differ")
+    check(share >= 0.99, f"pitch f0 within rtol {TOL_PITCH:g} on only {100 * share:.2f}%")
+    check(pov_err <= TOL_PITCH, f"pitch POV column vs float64: {pov_err}")
+    del p_sigs, feats_p, low, nccf_p, nc, track32
+    torch.cuda.empty_cache()
+
+    # 11. resampling and augmentation at the main path's 128 x 15 s; the
+    # float64 CPU references take the first CPU_ROWS rows (every op is per
+    # row)
+    ref_rows = host[:CPU_ROWS].astype(np.float64)
+    rir_rng = np.random.RandomState(11)
+    rir = rir_rng.randn(int(0.3 * RATE)) * np.exp(-np.arange(int(0.3 * RATE)) / (0.05 * RATE))
+    rir[40] = 2.0  # the direct path
+    noise_buf = (rir_rng.randn(n) * 0.1).astype(np.float32)
+    noise_dev = torch.tensor(noise_buf, device=dev)
+    noise64 = torch.tensor(noise_buf.astype(np.float64))
+    gen = torch.Generator(device=dev)
+    # (x, noise buffer, generator) -> output; mix_noise reads the buffer at
+    # random offsets when timed and at offset 0 (no generator) when checked
+    signal_ops = {
+        "resample 16 -> 8 kHz": lambda x, buf, g: resample.resample(x, 1, 2),
+        "speed_perturb 0.9": lambda x, buf, g: augment.speed_perturb(x, 0.9),
+        "speed_perturb 1.1": lambda x, buf, g: augment.speed_perturb(x, 1.1),
+        "reverberate 0.3 s RIR": lambda x, buf, g: augment.reverberate(x, rir),
+        "mix_noise 10 dB": lambda x, buf, g: augment.mix_noise(g, x, buf, 10.0),
+    }
+    for label, op in signal_ops.items():
+        out = op(sigs, noise_dev, gen.manual_seed(1))
+        torch.cuda.synchronize()
+        check(out.shape[0] == BATCH and bool(torch.isfinite(out).all()), f"{label}: bad output")
+        ms = cuda_ms(lambda: op(sigs, noise_dev, gen.manual_seed(1)), reps=3)
+        got = op(sigs[:CPU_ROWS], noise_dev, None).cpu().double()
+        want = op(torch.tensor(ref_rows), noise64, None)
+        err = (got - want).abs().max().item()
+        print(f"{label} {BATCH} x {SECONDS} s: {ms:.3f} ms median, "
+              f"{audio_s / (ms / 1e3):.0f} audio-s/s; rows 0-{CPU_ROWS - 1} vs float64 (CPU) "
+              f"max abs {err:.3e} (tol {TOL_SIGNAL:g})", flush=True)
+        check(err <= TOL_SIGNAL, f"{label} vs float64: {err}")
+        del out, got
+    torch.cuda.empty_cache()
+
+    # 12. feature inversion: 8 x 5 s of 'highest' fbank features
+    inv_comp = computer()
+    inv_n = 5 * RATE
+    inv_feats, _ = inv_comp.compute_batch(sigs[:8, :inv_n], np.full(8, inv_n))
+    y = invert.feats_to_signal(inv_feats, inv_comp, n_iters=64)
+    torch.cuda.synchronize()
+    check(tuple(y.shape) == (8, inv_feats.shape[1] * fs) and bool(torch.isfinite(y).all()),
+          f"feats_to_signal: shape {tuple(y.shape)} or non-finite values")
+    inv_ms = cuda_ms(lambda: invert.feats_to_signal(inv_feats, inv_comp, n_iters=64), reps=3)
+    inv64 = STFTFrameComputer(dict(BANK), **{**MAIN, "dtype": "float64"}, device="cpu")
+    want = invert.feats_to_signal(inv_feats.cpu().double(), inv64, n_iters=4)
+    card64 = STFTFrameComputer(dict(BANK), **{**MAIN, "dtype": "float64"}, device=dev)
+    got = invert.feats_to_signal(inv_feats.double(), card64, n_iters=4).cpu()
+    inv_err = (got - want).abs().max().item()
+    err32 = (invert.feats_to_signal(inv_feats, inv_comp, n_iters=4).cpu().double()
+             - want).abs().max().item()
+    print(f"feats_to_signal 8 x 5 s, 64 iterations: {inv_ms:.3f} ms median; 4 iterations, "
+          f"float64 on the card vs float64 (CPU) max abs {inv_err:.3e} (tol {TOL_INVERT:g}); "
+          f"float32 on the card vs float64 (CPU) {err32:.3e}, output peak "
+          f"{want.abs().max().item():.3f}", flush=True)
+    check(inv_err <= TOL_INVERT, f"feats_to_signal vs float64: {inv_err}")
+    del inv_feats, y
+
+    # 13. the file path: audio and statistics from files, then the chain
+    audio_dir = os.path.join(here, "tests", "audio")
+    t0 = time.perf_counter()
+    sph = sorted(glob.glob(os.path.join(audio_dir, "*.sph")))
+    for path in sph:
+        twin = path.replace("_shn.sph", ".wav").replace(".sph", ".wav")
+        check(np.array_equal(read_signal(path), read_signal(twin)),
+              f"{os.path.basename(path)} differs from its .wav twin")
+    mono = [os.path.join(audio_dir, "test.wav")] + [p for p in sph if "_1" in os.path.basename(p)]
+    from_files = [read_signal(p) for p in mono]
+    read_ms = (time.perf_counter() - t0) * 1e3
+    in_memory = [(read_wav(p.replace("_shn.sph", ".wav")) * 32768.0).astype(np.int16)
+                 for p in mono]
+    check(all(np.array_equal(a, b) for a, b in zip(from_files, in_memory)),
+          "read_signal differs from the in-memory PCM")
+    lens_f = np.array([a.size for a in from_files])
+
+    def padded_batch(arrays):
+        out = np.zeros((len(arrays), lens_f.max()), np.int16)
+        for i, a in enumerate(arrays):
+            out[i, : a.size] = a
+        return torch.tensor(out.astype(np.float32) / 32768.0, device=dev)
+
+    file_comp = computer(precision="double")
+
+    def file_chain(x, stats):
+        feats, counts = file_comp.compute_batch(pre.preemphasize(x), lens_f)
+        return postops.standardize_with_stats(feats, stats), counts
+
+    feats_f, counts_f = file_comp.compute_batch(pre.preemphasize(padded_batch(from_files)), lens_f)
+    acc = post.Standardize()
+    for row, c in enumerate(counts_f.tolist()):
+        acc.accumulate(feats_f[row, :c].cpu().double().numpy())
+    with tempfile.TemporaryDirectory() as tmp:
+        stats_path = os.path.join(tmp, "cmvn.npy")
+        acc.save(stats_path)
+        loaded = post.Standardize(stats_path)
+    check(np.array_equal(loaded.stats, acc.stats), "statistics read back differ")
+    K.reset_launch_counts()
+    x_files = padded_batch(from_files)
+    out_files, n_files = file_chain(x_files, torch.tensor(loaded.stats, device=dev))
+    torch.cuda.synchronize()
+    file_counts = K.launch_counts()
+    out_mem, n_mem = file_chain(padded_batch(in_memory),
+                                torch.tensor(post.Standardize.from_stats(acc.stats).stats,
+                                             device=dev))
+    file_ms = cuda_ms(lambda: file_chain(x_files, torch.tensor(loaded.stats, device=dev)))
+    print(f"file path: {len(sph)} .sph files bit-equal to their .wav twins, {len(mono)} mono "
+          f"files read in {read_ms:.1f} ms (host); chain launches {file_counts}; "
+          f"{file_ms:.3f} ms median on the card; bitwise equal to the in-memory chain: "
+          f"{torch.equal(out_files, out_mem)}", flush=True)
+    check(file_counts["stft_feats_int8"] == 1, "the file path did not run the int8 kernel once")
+    check(torch.equal(n_files, n_mem) and torch.equal(out_files, out_mem),
+          "the file path differs from the in-memory chain")
+
+    # 14. the kernels line, the card, the device line
     kernels = []
     for name, e in entries.items():
         bound, bound_by = bound_ms(e)

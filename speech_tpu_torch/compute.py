@@ -28,6 +28,7 @@ from . import config
 from .alias import AliasedFactory, alias_factory_subclass_from_arg
 from .filters import GammaWindow, HannWindow, LinearFilterBank, WindowFunction
 from .ops import framing as _framing
+from .ops._device import resolve_device
 from .ops import si as _si
 from .ops import stft as _stft
 from .ops import stft_kernels as _kernels
@@ -57,19 +58,6 @@ _SCALAR_KEYS = (
     "conv_re_scale",
     "conv_im_scale",
 )
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a :class:`torch.device`; ``None`` means the GPU, and
-    is an error where there is none (never a silent CPU run)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on "
-                "the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _compact_transfer(dtype) -> bool:

@@ -7,12 +7,15 @@ the GPU: ``torch.fft.rfft``, a windowed DFT as two matrix products, or the
 fused hand-written CUDA kernels of :mod:`speech_tpu_torch.ops.stft_kernels`.
 """
 
+from typing import Set
+
 __all__ = [
     "EFFECTIVE_SUPPORT_THRESHOLD",
     "LOG_FLOOR_VALUE",
     "FFT_MODE",
     "VALID_FFT_MODES",
     "SI_DIGIT_PARAM_BYTE_LIMIT",
+    "SOUNDFILE_SUPPORTED_FILE_TYPES",
 ]
 
 EFFECTIVE_SUPPORT_THRESHOLD: float = 5e-4
@@ -59,3 +62,22 @@ FFT_MODE: str = "auto"
 A runtime-mutable global selecting the implementation, which must not
 change results beyond numerical noise (reference: config.py:27-41).
 """
+
+# Optional soundfile probing, mirroring reference config.py:56-85: the
+# dispatch of speech_tpu_torch.io honours it where soundfile is importable.
+_BASE_SOUNDFILE_SUPPORTED_TYPES = {"wav", "ogg", "flac", "aiff"}
+_FULL_SOUNDFILE_SUPPORTED_TYPES: Set[str] = set()
+
+SOUNDFILE_SUPPORTED_FILE_TYPES: Set[str] = set()
+"""File suffixes delegated to :mod:`soundfile` when it is importable
+(reference: config.py:61-85)."""
+
+try:  # pragma: no cover - soundfile is an optional backend
+    import soundfile as _sf
+
+    _FULL_SOUNDFILE_SUPPORTED_TYPES = set(x.lower() for x in _sf.available_formats())
+    SOUNDFILE_SUPPORTED_FILE_TYPES = (
+        _BASE_SOUNDFILE_SUPPORTED_TYPES & _FULL_SOUNDFILE_SUPPORTED_TYPES
+    )
+except ImportError:
+    pass

@@ -51,6 +51,15 @@
 //      filter) sums, over the filter's span of nonzero weights only; the last
 //      chunk adds the Nyquist term, log floor and energy.  No atomics: the
 //      result is deterministic.
+// The fp32 filter sums (two of M frames a filter) grow with the bank, so a
+// bank whose sums leave no room for one k-step of planes is split into the
+// fewest filter groups that fit (int8_plan), one grid slice (axis z) each.
+// A group walks only the chunks its filters' spans touch, led by chunk 0
+// (which carries the Nyquist value) where one of its filters weights it;
+// only group 0 writes the energy column.  Every filter still sums its bins
+// in ascending order over the same chunks, and the integer group sums and
+// their fp32 adds do not depend on the group, so each column has the bits
+// of a one-group launch.  The main path's 40 filters are one group.
 // Frames too long for 16 frames of full planes (K above about 2300 at 40
 // filters) take M = 64 with the planes cut along K into slabs of whole
 // k-steps (a separate instantiation, so the other loops stay as they are): each group walks the slabs in turn, its int32 sum running on
@@ -223,18 +232,53 @@ size_t int8_smem_bytes(int M, int stages, int slab, int C) {
   return 2 * kMaxStages * sizeof(uint64_t) + (size_t)kPlanes * M * slab * kStepK +
          (size_t)stages * kStageBytes +
          sizeof(float) * ((size_t)kBins * (M + 8) + 2 * (size_t)M * C + 3 * (size_t)M +
-                          kMaxMembers + 3 * kMaxGroups);
+                          kMaxMembers + 3 * kMaxGroups + 4);
 }
 
-// Warp 8 is the producer: it streams the chunks' k-steps into the ring by
-// bulk copies.  Warps 0-7 consume them.  M = 64: two warpgroups, each 64
-// frames x 64 columns by wgmma.  M = 32, 16: eight warps, each M frames x 16
+// the launch's shape: `groups` filter groups of `cg` filters (the last may
+// hold fewer), M-frame tiles, a ring of `stages`, planes `slab` k-steps long
+// (all of them where `whole`), samples staged in the ring where `staged`
+struct I8Plan {
+  int groups, cg, M, stages, slab, whole, staged;
+};
+
+// the fewest filter groups that fit; for each count of groups, the first
+// tile and ring that hold whole planes, else the first that hold a slab of
+// them.  -1 where not even one filter fits beside one k-step of planes.
+int int8_plan(size_t optin, int frame_shift, int K, int C, I8Plan* plan) {
+  const int nk = (K + kStepK - 1) / kStepK;
+  const int tiles[] = {64, 32, 16};
+  for (int ng = 1; ng <= C; ++ng) {
+    const int cg = (C + ng - 1) / ng;
+    if ((C + cg - 1) / cg != ng) continue;  // the same groups as a smaller count
+    for (int whole = 1; whole >= 0; --whole)
+      for (int M : tiles)
+        for (int stages = kMaxStages; stages >= 2; --stages) {
+          const size_t fixed = int8_smem_bytes(M, stages, 0, cg);
+          if (fixed > optin) continue;
+          const size_t fit = (optin - fixed) / ((size_t)kPlanes * M * kStepK);
+          const int slab = fit < (size_t)nk ? (int)fit : nk;
+          if (slab < (whole ? nk : 1)) continue;
+          const long long nsamp = (long long)(M - 1) * frame_shift + K;
+          const int staged = whole && nsamp * (long long)sizeof(float) <=
+                                          (long long)stages * kStageBytes;
+          *plan = {ng, cg, M, stages, slab, whole, staged};
+          return 0;
+        }
+  }
+  return -1;
+}
+
+// Warp 8 is the producer: it streams the walked chunks' k-steps into the
+// ring by bulk copies.  Warps 0-7 consume them.  Grid axis z picks the
+// filter group: filters [z Cg, z Cg + Cg) of the C in the bank.  M = 64:
+// two warpgroups, each 64 frames x 64 columns by wgmma.  M = 32, 16: eight warps, each M frames x 16
 // columns by mma.sync.  The planes hold `slab` k-steps of K: all of K, or
 // with kSlabs (very long frames) fewer, digitised again as the walk needs.
 template <int M, bool kSlabs>
 __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
     const float* __restrict__ x, long long row_stride, long long n_valid,
-    int frame_shift, int num_frames, int K, int nb, int C,
+    int frame_shift, int num_frames, int K, int nb, int C, int Cg,
     const int8_t* __restrict__ packed, const __grid_constant__ I8Groups groups,
     int stages, int slab, float cos_scale, const float* __restrict__ mscale,
     const float* __restrict__ mask, const float* __restrict__ w_hi,
@@ -258,8 +302,8 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
   // [stages][kStageSteps][16][2][8][16]: the packed layout, copied as it is
   unsigned char* ring = reinterpret_cast<unsigned char*>(planes) + (size_t)kPlanes * M * kp;
   float* spec = reinterpret_cast<float*>(ring + (size_t)stages * kStageBytes);  // [kBins][kSS]
-  float* fsum = spec + kBins * kSS;  // [2][M][C]: w_hi and w_lo sums
-  float* scl = fsum + 2 * M * C;     // [M]
+  float* fsum = spec + kBins * kSS;  // [2][M][Cg]: the group's w_hi and w_lo sums
+  float* scl = fsum + 2 * M * Cg;    // [M]
   float* en = scl + M;               // [M]
   float* nyq = en + M;               // [M]
   // the group table, read once from the parameters: a dynamically indexed
@@ -268,6 +312,9 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
   int* ends = a_offs + kMaxMembers;                // [kMaxGroups]
   int* mends = ends + kMaxGroups;                  // [kMaxGroups]
   float* wts = reinterpret_cast<float*>(mends + kMaxGroups);  // [kMaxGroups]
+  // the chunk walk: [0] 1 where chunk 0 leads, [1] the first chunk of the
+  // group's spans, [2] the chunks walked
+  int* walk = reinterpret_cast<int*>(wts + kMaxGroups);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -275,7 +322,8 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
   const int b = blockIdx.y;
   const int f0 = blockIdx.x * M;
   const float* xrow = x + (long long)b * row_stride;
-  const int nchunks = (nb + kBins - 1) / kBins;
+  const int c0 = blockIdx.z * Cg;  // the group's filters: [c0, c0 + cg)
+  const int cg = min(Cg, C - c0);
   if (tid < kMaxMembers) a_offs[tid] = groups.plane[tid] * M * kp;
   if (tid < kMaxGroups) {
     ends[tid] = groups.end[tid];
@@ -288,6 +336,32 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
       mbar_init(empty + i, kConsumers / 32);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (warp == 1) {
+    // the chunks the group's spans touch, led by chunk 0 where a filter of
+    // the group weights the Nyquist value and the spans start above it; a
+    // group without weights walks chunk 0 alone
+    int lo = nb, hi = 0, nq = 0;
+    for (int c = c0 + lane; c < c0 + cg; c += 32) {
+      lo = min(lo, __ldg(spans + 2 * c));
+      hi = max(hi, __ldg(spans + 2 * c + 1));
+      nq |= __ldg(w_nyq + c) != 0.f;
+    }
+    for (int o = 16; o; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      nq |= __shfl_xor_sync(0xffffffffu, nq, o);
+    }
+    if (lane == 0) {
+      // clamped to nb: a span that ended past the last row would walk a
+      // chunk past the packed matrices
+      int clo = lo / kBins, chi = (min(hi, nb) + kBins - 1) / kBins;
+      if (chi <= clo) clo = 0, chi = 1;
+      const int lead = nq && clo > 0;
+      walk[0] = lead;
+      walk[1] = clo;
+      walk[2] = chi - clo + lead;
+    }
   }
   // The block's samples, [f0 * shift, f0 * shift + nsamp), staged in the
   // ring (which the producer fills only after the digits exist) by coalesced
@@ -323,9 +397,12 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
       const int bits = __float_as_int(fmaxf(m, 1e-30f));
       scl[t] = __int_as_float(((bits >> 23) + 2) << 23);
       en[t] = s;
+      nyq[t] = 0.f;  // where chunk 0 is not walked, no filter weights it
     }
   }
   __syncthreads();
+  const int nwalk = walk[2];
+  auto chunk_of = [walk](int w) { return walk[0] && w == 0 ? 0 : walk[1] + w - walk[0]; };
 
   // five base-128 digit planes of the slab from k-step kb, by `nthreads`
   // threads, four samples to a thread (a warp fills one core matrix: 8
@@ -367,7 +444,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
   __syncthreads();
 
   if (tid >= kConsumers) {
-    // the producer: each chunk's k-steps in the order the consumers take
+    // the producer: each walked chunk's k-steps in the order the consumers take
     // them (group by group, each group's slabs in turn, each slab member by
     // member), then the padding k-steps; stage q goes into slot q mod stages
     // once the slot's previous stage has been consumed
@@ -388,8 +465,8 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
           }
         }
       };
-      for (int chunk = 0; chunk < nchunks; ++chunk) {
-        const int8_t* pc = packed + (long long)chunk * groups.steps * kStepBytes;
+      for (int w = 0; w < nwalk; ++w) {
+        const int8_t* pc = packed + (long long)chunk_of(w) * groups.steps * kStepBytes;
         if constexpr (!kSlabs) {
           // whole planes: the k-steps lie in order, a stage at a time
           for (int q = 0; q < groups.steps; q += kStageSteps)
@@ -465,7 +542,8 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
 
   const int per_chunk = groups.steps / kStageSteps;
   int slot = 0, use = 0, prev = -1;  // ring slot and its use of this stage; the last one's
-  for (int chunk = 0; chunk < nchunks; ++chunk) {
+  for (int w = 0; w < nwalk; ++w) {
+    const int chunk = chunk_of(w);
     // k-step position: `member` and `kk` pick the A rows (a_cur) in the
     // slab [kb, kend); `next_end` is the k-step that ends group `group`;
     // `fresh`: its sum starts anew
@@ -602,25 +680,26 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
     // nonzero span; each thread owns the same (4 frames, filter) tasks in
     // every chunk
     const int j0 = chunk * kBins;
-    const bool last = chunk + 1 == nchunks;
+    const bool last = w + 1 == nwalk;
     const int nc = C + energy;
-    for (int task = tid; task < (M / kFT) * C; task += kConsumers) {
-      const int tg = task / C;
-      const int c = task - tg * C;
-      float* fh = fsum + tg * kFT * C + c;
-      float* fl = fh + M * C;
+    for (int task = tid; task < (M / kFT) * cg; task += kConsumers) {
+      const int tg = task / cg;
+      const int c = task - tg * cg;
+      const int cc = c0 + c;  // the filter's column in the bank
+      float* fh = fsum + tg * kFT * Cg + c;
+      float* fl = fh + M * Cg;
       float hi[kFT], lo[kFT];
 #pragma unroll
       for (int f = 0; f < kFT; ++f) {
-        hi[f] = chunk ? fh[f * C] : 0.f;
-        lo[f] = chunk ? fl[f * C] : 0.f;
+        hi[f] = w ? fh[f * Cg] : 0.f;
+        lo[f] = w ? fl[f * Cg] : 0.f;
       }
-      const int ja = max(j0, __ldg(spans + 2 * c));
-      const int jb = min(min(j0 + kBins, nb), __ldg(spans + 2 * c + 1));
+      const int ja = max(j0, __ldg(spans + 2 * cc));
+      const int jb = min(min(j0 + kBins, nb), __ldg(spans + 2 * cc + 1));
       const float* sp = spec + tg * kFT;
       for (int j = ja; j < jb; ++j) {
-        const float vh = __ldg(w_hi + (long long)j * C + c);
-        const float vl = __ldg(w_lo + (long long)j * C + c);
+        const float vh = __ldg(w_hi + (long long)j * C + cc);
+        const float vl = __ldg(w_lo + (long long)j * C + cc);
         const float4 v = *reinterpret_cast<const float4*>(sp + (j - j0) * kSS);
         hi[0] = fmaf(v.x, vh, hi[0]);
         lo[0] = fmaf(v.x, vl, lo[0]);
@@ -634,8 +713,8 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
       if (!last) {
 #pragma unroll
         for (int f = 0; f < kFT; ++f) {
-          fh[f * C] = hi[f];
-          fl[f * C] = lo[f];
+          fh[f * Cg] = hi[f];
+          fl[f * Cg] = lo[f];
         }
         continue;
       }
@@ -643,12 +722,12 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
       for (int f = 0; f < kFT; ++f) {
         const int t = tg * kFT + f;
         if (f0 + t >= num_frames) continue;
-        float a = __fadd_rn(__fadd_rn(hi[f], lo[f]), __fmul_rn(nyq[t], __ldg(w_nyq + c)));
+        float a = __fadd_rn(__fadd_rn(hi[f], lo[f]), __fmul_rn(nyq[t], __ldg(w_nyq + cc)));
         if (use_log) a = floor_log(a, log_floor);
-        out[((long long)b * num_frames + f0 + t) * nc + energy + c] = a;
+        out[((long long)b * num_frames + f0 + t) * nc + energy + cc] = a;
       }
     }
-    if (last && energy) {
+    if (last && energy && blockIdx.z == 0) {
       for (int t = tid; t < M; t += kConsumers) {
         if (f0 + t >= num_frames) continue;
         float e = en[t] / (float)K;
@@ -663,7 +742,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_feats_kernel(
 template <int M, bool kSlabs>
 cudaError_t launch_int8(dim3 grid, size_t smem, cudaStream_t stream, const float* x,
                         long long row_stride, long long n_valid, int frame_shift,
-                        int num_frames, int K, int nb, int C, const int8_t* packed,
+                        int num_frames, int K, int nb, int C, int Cg, const int8_t* packed,
                         const I8Groups& groups, int stages, int slab,
                         float cos_scale, const float* mscale, const float* mask,
                         const float* w_hi, const float* w_lo, const float* w_nyq,
@@ -676,10 +755,18 @@ cudaError_t launch_int8(dim3 grid, size_t smem, cudaStream_t stream, const float
     if (e != cudaSuccess) return e;
   }
   int8_feats_kernel<M, kSlabs><<<grid, kThreads, smem, stream>>>(
-      x, row_stride, n_valid, frame_shift, num_frames, K, nb, C, packed, groups,
+      x, row_stride, n_valid, frame_shift, num_frames, K, nb, C, Cg, packed, groups,
       stages, slab, cos_scale, mscale, mask, w_hi, w_lo, w_nyq, spans, out,
       use_log, use_power, energy, log_floor);
   return cudaGetLastError();
+}
+
+// the shared memory a block of the current device may opt in to
+cudaError_t optin_bytes(int* optin) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  return cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
 }  // namespace
@@ -698,9 +785,11 @@ extern "C" {
 // ascending weight order (xs is n_groups x 5).  spans (C x 2 int32) bound
 // each filter's nonzero w_hi / w_lo rows as [first, last + 1).  out is
 // (batch, num_frames, C + energy) fp32.  Any K: where no frame tile holds
-// whole planes, 64-frame tiles hold slabs of them.  Returns a cudaError_t;
-// -1 when not even one k-step of planes fits in shared memory (some 1,500
-// filters), -2 for a bad group table or layout.
+// whole planes, 64-frame tiles hold slabs of them.  Any C: the bank is split
+// into the fewest filter groups whose sums fit beside the planes
+// (stk_int8_plan), one grid slice each.  Returns a cudaError_t; -1 when not
+// even one filter's sums fit beside one k-step of planes, -2 for a bad group
+// table or layout.
 int stk_int8_feats(const float* x, long long batch, long long row_stride,
                    long long n_valid, int frame_shift, int num_frames, int K,
                    int nb, int C, const int8_t* packed, int steps, int n_groups,
@@ -733,44 +822,50 @@ int stk_int8_feats(const float* x, long long batch, long long row_stride,
   if (steps != groups.steps) return -2;
   groups.end[n_groups - 1] = groups.steps;
 
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int optin = 0;
+  cudaError_t e = optin_bytes(&optin);
   if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return (int)e;
+  I8Plan plan;
+  if (int8_plan((size_t)optin, frame_shift, K, C, &plan)) return -1;
+  const size_t smem = int8_smem_bytes(plan.M, plan.stages, plan.slab, plan.cg);
+  dim3 grid((num_frames + plan.M - 1) / plan.M, (unsigned)batch, plan.groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles[] = {64, 32, 16};
-  // the first tile and ring that hold whole planes; else the first that
-  // holds a slab of them
-  for (int whole = 1; whole >= 0; --whole) {
-    for (int M : tiles) {
-      for (int stages = kMaxStages; stages >= 2; --stages) {
-        const size_t fixed = int8_smem_bytes(M, stages, 0, C);
-        if (fixed > (size_t)optin) continue;
-        const size_t fit = (optin - fixed) / ((size_t)kPlanes * M * kStepK);
-        const int slab = fit < (size_t)groups.nk ? (int)fit : groups.nk;
-        if (slab < (whole ? groups.nk : 1)) continue;
-        const size_t smem = int8_smem_bytes(M, stages, slab, C);
-        dim3 grid((num_frames + M - 1) / M, (unsigned)batch);
-#define STK_INT8(MM, SLABS)                                                         \
-  launch_int8<MM, SLABS>(grid, smem, st, x, row_stride, n_valid, frame_shift,       \
-                         num_frames, K, nb, C, packed, groups, stages, slab,        \
-                         cos_scale, mscale, mask, w_hi, w_lo, w_nyq, spans, out,    \
-                         use_log, use_power, energy, log_floor)
-        cudaError_t rc;
-        if (M == 64) rc = whole ? STK_INT8(64, false) : STK_INT8(64, true);
-        else if (M == 32) rc = whole ? STK_INT8(32, false) : STK_INT8(32, true);
-        else rc = whole ? STK_INT8(16, false) : STK_INT8(16, true);
-        return (int)rc;
+#define STK_INT8(MM, SLABS)                                                           \
+  launch_int8<MM, SLABS>(grid, smem, st, x, row_stride, n_valid, frame_shift,         \
+                         num_frames, K, nb, C, plan.cg, packed, groups, plan.stages,  \
+                         plan.slab, cos_scale, mscale, mask, w_hi, w_lo, w_nyq,       \
+                         spans, out, use_log, use_power, energy, log_floor)
+  cudaError_t rc;
+  if (plan.M == 64) rc = plan.whole ? STK_INT8(64, false) : STK_INT8(64, true);
+  else if (plan.M == 32) rc = plan.whole ? STK_INT8(32, false) : STK_INT8(32, true);
+  else rc = plan.whole ? STK_INT8(16, false) : STK_INT8(16, true);
 #undef STK_INT8
-      }
-    }
-  }
-  return -1;
+  return (int)rc;
+}
+
+// The launch stft_feats_int8 would make for a frame shift, K and C on the
+// current device: plan[0..5] = filter groups, filters a group, ring stages,
+// samples staged in shared memory (1) or not (0), frames a tile, k-steps of
+// planes a slab (all of K's where the planes are whole).  Returns 0, -1
+// where nothing fits, or a cudaError_t.
+int stk_int8_plan(int frame_shift, int K, int C, int* plan) {
+  if (K < 1 || C < 1 || frame_shift < 1) return -2;
+  int optin = 0;
+  cudaError_t e = optin_bytes(&optin);
+  if (e != cudaSuccess) return (int)e;
+  I8Plan p;
+  if (int8_plan((size_t)optin, frame_shift, K, C, &p)) return -1;
+  plan[0] = p.groups;
+  plan[1] = p.cg;
+  plan[2] = p.stages;
+  plan[3] = p.staged;
+  plan[4] = p.M;
+  plan[5] = p.slab;
+  return 0;
 }
 
 const char* stk_error_string(int code) {
-  if (code == -1) return "not one k-step of digit planes fits in shared memory";
+  if (code == -1) return "not even one filter's sums fit beside one k-step of digit planes";
   if (code == -2) return "bad digit group table or layout";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -10,7 +10,9 @@ own: ``stft_kernels.cu`` (B1/B3, the fused float kernel),
 exports its own ``stk_error_string`` for its own error codes.  Libraries
 land in ``build/speech_tpu_torch/`` at the root of the checkout, named by
 the hash of their source and flags, so an edited source rebuilds and an
-unchanged one loads as it is.
+unchanged one loads as it is.  (The host shorten decoder,
+``csrc/shorten.cpp``, is built with g++ by :mod:`speech_tpu_torch.io._native`
+into the same directory.)
 """
 
 import ctypes

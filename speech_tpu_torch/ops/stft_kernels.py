@@ -31,11 +31,10 @@ after every 2 k-steps), 'default' as one TF32 pass (within the reference's
 On the CPU every tier is IEEE fp32, as in JAX there.
 
 Every kernel keeps fp32 filter sums of its block's frames in shared
-memory.  B1/B3 and B4 split a bank whose sums do not fit into filter groups
-(one grid slice each, walking only the 64-bin chunks its filters touch),
-so they take any bank; :func:`float_launch_plan` and
-:func:`double_launch_plan` give the split.  B2 takes up to 1,488 filters at
-K 400 on an H100 and raises above.
+memory.  Each splits a bank whose sums do not fit into filter groups (one
+grid slice each, walking only the 64-bin chunks its filters touch), so
+every kernel takes any bank; :func:`float_launch_plan`,
+:func:`int8_launch_plan` and :func:`double_launch_plan` give the split.
 """
 
 import ctypes
@@ -63,6 +62,7 @@ from .stft import (
 __all__ = [
     "double_launch_plan",
     "float_launch_plan",
+    "int8_launch_plan",
     "launch_counts",
     "padded_need",
     "reset_launch_counts",
@@ -174,6 +174,12 @@ _SIGNATURES = {
         ctypes.c_int,  # C
         _c_int_p,  # plan
     ],
+    "stk_int8_plan": [
+        ctypes.c_int,  # frame_shift
+        ctypes.c_int,  # K
+        ctypes.c_int,  # C
+        _c_int_p,  # plan
+    ],
 }
 # launcher -> the source (csrc/<stem>.cu) whose library exports it, beside
 # that library's own stk_error_string
@@ -183,6 +189,7 @@ _LIBRARIES = {
     "stk_double_feats": "double_kernels",
     "stk_float_plan": "stft_kernels",
     "stk_double_plan": "double_kernels",
+    "stk_int8_plan": "int8_kernels",
 }
 
 
@@ -210,20 +217,27 @@ def _launch(name: str, wrapper: str, *args):
         )
 
 
-def _plan(name: str, device, frame_shift: int, frame_length: int, n_filts: int) -> dict:
+_PLAN_KEYS = ("groups", "group_filters", "stages", "span")
+
+
+def _plan(
+    name: str, device, frame_shift: int, frame_length: int, n_filts: int,
+    keys=_PLAN_KEYS,
+) -> dict:
     """The launch shape the C launcher's own search settles on ``device``:
     ``groups`` of at most ``group_filters`` filters, ``stages`` of the ring,
-    ``span`` (the samples staged once, else slabs or device memory).  The
-    launchers take the fewest filter groups whose sums fit in shared memory
-    (one up to some hundred filters, so the main path's 40 take one), and
-    raise only where not even one filter fits."""
+    ``span`` (the samples staged once, else slabs or device memory), and
+    any further ``keys`` the launcher reports.  The launchers take the
+    fewest filter groups whose sums fit in shared memory (one up to some
+    hundred filters, so the main path's 40 take one), and raise only where
+    not even one filter fits."""
     fn, err = _launcher(name)
-    plan = (ctypes.c_int * 4)()
+    plan = (ctypes.c_int * len(keys))()
     with torch.cuda.device(device):
         rc = fn(frame_shift, frame_length, n_filts, plan)
     if rc != 0:
         raise RuntimeError(f"{name} failed ({rc}): " + err(rc).decode(errors="replace"))
-    return dict(zip(("groups", "group_filters", "stages", "span"), plan))
+    return dict(zip(keys, plan))
 
 
 def float_launch_plan(device, *, frame_shift: int, frame_length: int, n_filts: int) -> dict:
@@ -235,6 +249,18 @@ def float_launch_plan(device, *, frame_shift: int, frame_length: int, n_filts: i
 def double_launch_plan(device, *, frame_shift: int, frame_length: int, n_filts: int) -> dict:
     """:func:`_plan` of :func:`stft_feats_double`."""
     return _plan("stk_double_plan", device, frame_shift, frame_length, n_filts)
+
+
+def int8_launch_plan(device, *, frame_shift: int, frame_length: int, n_filts: int) -> dict:
+    """:func:`_plan` of :func:`stft_feats_int8`, with ``tile`` (frames a
+    block: 64, 32 or 16) and ``slab`` (k-steps of 32 samples of digit
+    planes a block holds: all of ``ceil(frame_length / 32)`` unless the
+    planes are cut into slabs).  One group holds 1,488 filters at K 400 on
+    an H100."""
+    return _plan(
+        "stk_int8_plan", device, frame_shift, frame_length, n_filts,
+        keys=_PLAN_KEYS + ("tile", "slab"),
+    )
 
 
 def _check_cuda(ref, **tensors):
@@ -778,7 +804,9 @@ def stft_feats_int8(
     streaming through a shared-memory ring in the layout of
     :func:`_pack_groups`, one 64-bin chunk of columns at a time; the
     exactness (integer sums, the 12-bit split, the ascending fp32 adds) is
-    the point of the tier.
+    the point of the tier.  A bank too wide for one block's filter sums is
+    split into filter groups (:func:`int8_launch_plan`), each column with
+    the bits a one-group launch would give it.
     """
     padded = padded.to(torch.float32)
     if padded.dim() != 2:

@@ -3,11 +3,8 @@
 The PyTorch port's copy of :mod:`speech_tpu.post`: the reference-compatible
 host API (``apply(features, axis=-1, in_place=False)``; reference:
 src/pydrobert/speech/post.py) in numpy, with tensor twins in
-:mod:`speech_tpu_torch.ops.postops` for on-device pipelines.
-
-Not ported yet: reading statistics or a transform from a file
-(``rfilename=``) waits for the port of ``io/`` and raises
-:class:`NotImplementedError` naming its ROADMAP item.
+:mod:`speech_tpu_torch.ops.postops` for on-device pipelines.  Statistics and
+transforms load from files through :func:`speech_tpu_torch.io.read_signal`.
 """
 
 import abc
@@ -36,12 +33,6 @@ __all__ = [
     "VADTrim",
 ]
 
-_NO_IO = (
-    "reading {what} from a file waits for the port of io/ (ROADMAP queue A "
-    "item 8); pass them in memory instead"
-)
-
-
 class PostProcessor(AliasedFactory):
     """A transform applied to a feature tensor."""
 
@@ -65,8 +56,8 @@ class Standardize(PostProcessor):
     Parameters
     ----------
     rfilename
-        A file of sufficient statistics: not supported yet (waits for the
-        port of ``io/``); raises :class:`NotImplementedError`.
+        Optional file of sufficient statistics, loaded via
+        :func:`speech_tpu_torch.io.read_signal`.
     norm_var
         Whether to normalize variance as well as mean.
     """
@@ -79,10 +70,67 @@ class Standardize(PostProcessor):
         self._stats = None
         self._norm_var = bool(norm_var)
         if rfilename is not None:
-            raise NotImplementedError(_NO_IO.format(what="statistics"))
+            from .io import read_signal
+
+            if "dtype" in kwargs:
+                self._stats = read_signal(rfilename, **kwargs)
+            else:
+                # float widths first; then the Kaldi matrix dtype strings
+                # so stats archived in Kaldi tables load too (reference:
+                # post.py:109 tries ('dm', 'fm') after the float widths)
+                for dtype in (np.float64, np.float32, "dm", "fm"):
+                    try:
+                        self._stats = read_signal(rfilename, dtype=dtype, **kwargs)
+                        break
+                    except (IOError, ValueError, ImportError, TypeError):
+                        pass
+                if self._stats is None:
+                    raise IOError(
+                        f"statistics at {rfilename} were unreadable at "
+                        "either float width or as a Kaldi matrix"
+                    )
+                self._stats = np.asarray(self._stats)
+                if len(self._stats.shape) == 1:
+                    self._sanitize_stats()
         elif kwargs:
             raise TypeError(f"unexpected keyword arguments: {tuple(kwargs)}")
         super().__init__()
+
+    @staticmethod
+    def _plausible_stats(arr: np.ndarray):
+        """``arr`` reshaped to the ``[sums|count ; sumsqs|-]`` layout if its
+        values are consistent with it (nonnegative, integral count), else
+        None."""
+        if arr.size % 2:
+            return None
+        arr = arr.reshape(2, -1)
+        count = arr[0, -1]
+        if np.all(arr >= 0) and np.isclose(np.round(count), count):
+            return arr
+        return None
+
+    def _sanitize_stats(self):
+        # a flat stats array (raw binary load) may have been serialized at
+        # the other float width; accept whichever reinterpretation yields a
+        # plausible sufficient-statistics layout
+        raw = self._stats
+        ok = self._plausible_stats(raw)
+        if ok is None:
+            if raw.dtype == np.float32:
+                reread = np.frombuffer(raw.tobytes(), dtype=np.float64)
+            elif raw.dtype == np.float64:
+                reread = np.frombuffer(raw.tobytes(), dtype=np.float32)
+            else:
+                raise ValueError(
+                    f"loaded statistics have unusable dtype {raw.dtype}"
+                )
+            ok = self._plausible_stats(reread.astype(np.float64))
+        if ok is None:
+            raise IOError(
+                "loaded data does not look like sufficient statistics at "
+                "any float width; pass an explicit dtype to the constructor"
+            )
+        self._stats = ok
 
     @classmethod
     def from_stats(
@@ -704,8 +752,9 @@ class Transform(PostProcessor):
     Parameters
     ----------
     rfilename
-        A file holding the matrix: not supported yet (waits for the port
-        of ``io/``); raises :class:`NotImplementedError`.
+        Optional file holding the matrix, loaded via
+        :func:`speech_tpu_torch.io.read_signal` (``.npy``/``.npz``/``.pt``/
+        Kaldi ``dm``/``fm`` tables all work).
     matrix
         The matrix itself (mutually exclusive with ``rfilename``).
     """
@@ -716,7 +765,24 @@ class Transform(PostProcessor):
         if (rfilename is None) == (matrix is None):
             raise ValueError("pass exactly one of rfilename= or matrix=")
         if rfilename is not None:
-            raise NotImplementedError(_NO_IO.format(what="a transform"))
+            from .io import read_signal
+
+            if "dtype" in kwargs:
+                matrix = read_signal(rfilename, **kwargs)
+            else:
+                # float widths first, then the Kaldi matrix dtype strings
+                # (the Standardize stats-loading convention)
+                for dtype in (np.float64, np.float32, "dm", "fm"):
+                    try:
+                        matrix = read_signal(rfilename, dtype=dtype, **kwargs)
+                        break
+                    except (IOError, ValueError, ImportError, TypeError):
+                        pass
+                if matrix is None:
+                    raise IOError(
+                        f"transform at {rfilename} was unreadable at either "
+                        "float width or as a Kaldi matrix"
+                    )
         elif kwargs:
             raise TypeError(f"unexpected keyword arguments: {tuple(kwargs)}")
         matrix = np.asarray(matrix, dtype=np.float64)

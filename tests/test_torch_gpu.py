@@ -224,21 +224,23 @@ def test_int8_kernel_long_frames_and_shifts(shape, precision):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "precision,frame_length_ms",
-    [("double", 25), ("accurate", 25), ("double", 150)],
-    ids=["double", "accurate", "double-k2400"],
+    "precision,frame_length_ms,num_filts",
+    [("double", 25, 40), ("accurate", 25, 40), ("double", 150, 40), ("double", 25, 1489)],
+    ids=["double", "accurate", "double-k2400", "double-1489"],
 )
-def test_int8_kernel_repeats_bitwise(precision, frame_length_ms):
+def test_int8_kernel_repeats_bitwise(precision, frame_length_ms, num_filts):
     """No atomics and a fixed order of every sum: 100 calls on one ragged
     int16 batch give the same bits, within TOL_INT8 of the CPU (150 ms
-    frames: the planes in slabs of K)."""
+    frames: the planes in slabs of K; 1,489 filters: two filter groups,
+    through ``compute_batch``)."""
     dev = _device()
     rows = _int8_rows("silence-int16", 24000)
     lens = np.array([24000, 19000, 24000])
     kw = dict(frame_length_ms=frame_length_ms, frame_shift_ms=10, precision=precision,
               use_log=False, use_power=False)
-    gpu = STFTFrameComputer(dict(BANK), device=dev, **kw)
-    want, want_n = STFTFrameComputer(dict(BANK), device="cpu", **kw).compute_batch(rows, lens)
+    bank = dict(BANK, num_filts=num_filts)
+    gpu = STFTFrameComputer(dict(bank), device=dev, **kw)
+    want, want_n = STFTFrameComputer(dict(bank), device="cpu", **kw).compute_batch(rows, lens)
     first, _ = gpu.compute_batch(rows, lens)
     for row, m in enumerate(want_n.tolist()):
         _close(first[row, :m].cpu(), want[row, :m], TOL_INT8, False)
@@ -324,13 +326,13 @@ def test_double_kernel_sample_paths(shape, precision):
     _close(got, K.stft_feats_double_plain(padded, params, **kw), TOL_INT8, True)
 
 
-def _bank_case(dev, num_filts, seed, **kw):
+def _bank_case(dev, num_filts, seed, frame_length_ms=25, **kw):
     """``(computer, padded rows, kwargs of a kernel call)`` for a bank of
     ``num_filts`` filters at the main shape (16 kHz, 25 ms, 10 ms, dft
-    512)."""
+    512) or at ``frame_length_ms``."""
     tc = STFTFrameComputer(
-        dict(BANK, num_filts=num_filts), frame_length_ms=25, frame_shift_ms=10, device=dev,
-        **kw,
+        dict(BANK, num_filts=num_filts), frame_length_ms=frame_length_ms, frame_shift_ms=10,
+        device=dev, **kw,
     )
     n = 9000
     x = torch.tensor(np.random.RandomState(seed).randn(3, n).astype(np.float32), device=dev)
@@ -434,27 +436,73 @@ def test_float_kernel_filter_limit():
         assert (counts["stft_feats_rows"], counts["stft_feats_frames"]) == (1, 1), num_filts
 
 
-# the most filters B2 takes at K 400 / dft 512: 16-frame tiles, a ring of
-# two stages and one k-step of planes beside two fp32 sums of 16 frames a
-# filter fill the H100's 232,448 bytes (csrc/int8_kernels.cu:int8_smem_bytes)
+# the most filters one B2 group takes at K 400 / dft 512: 16-frame tiles, a
+# ring of two stages and one k-step of planes beside two fp32 sums of 16
+# frames a filter fill the H100's 232,448 bytes
+# (csrc/int8_kernels.cu:int8_smem_bytes)
 INT8_FILTER_LIMIT = 1488
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("extra", [0, 1], ids=["limit", "one-more"])
-def test_int8_kernel_filter_limit(extra):
-    """B2 at its largest bank matches the plain version; one filter more
-    does not fit, and the call raises with nothing run in the kernel's
-    place."""
+@pytest.mark.parametrize("precision", ["double", "accurate"])
+@pytest.mark.parametrize(
+    "num_filts", [INT8_FILTER_LIMIT, INT8_FILTER_LIMIT + 1, 2 * INT8_FILTER_LIMIT + 2],
+    ids=["limit", "one-more", "twice"],
+)
+def test_int8_kernel_filter_limit(num_filts, precision):
+    """B2's one-group limit at K 400 is measured here (and in ROADMAP.md);
+    the limit, one filter more (two groups) and twice that (three) all
+    match the plain version in one launch.  The main path's 40 filters stay
+    one group of 64-frame tiles with whole planes and staged samples."""
     dev = _device()
-    tc, padded, kw = _bank_case(dev, INT8_FILTER_LIMIT + extra, 91, precision="double")
+    plan = functools.partial(K.int8_launch_plan, dev, frame_shift=160, frame_length=400)
+    assert _one_group_limit(lambda c: plan(n_filts=c)) == INT8_FILTER_LIMIT
+    assert plan(n_filts=40) == dict(groups=1, group_filters=40, stages=3, span=1, tile=64,
+                                    slab=13)
+    groups = plan(n_filts=num_filts)["groups"]
+    assert groups == -(-num_filts // INT8_FILTER_LIMIT), (num_filts, groups)
+    tc, padded, kw = _bank_case(dev, num_filts, 91, precision=precision)
     kw["dft_size"] = tc.dft_size
     K.reset_launch_counts()
-    if extra:
-        with pytest.raises(RuntimeError, match="not one k-step"):
-            K.stft_feats_int8(padded, tc.params, **kw)
-        assert K.launch_counts()["stft_feats_int8"] == 0
-        return
+    got = K.stft_feats_int8(padded, tc.params, **kw)
+    assert K.launch_counts()["stft_feats_int8"] == 1
+    _close(got, K.stft_feats_int8_plain(padded, tc.params, **kw), TOL_INT8, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["double", "accurate"])
+def test_int8_filter_groups_match_one_group_bitwise(precision):
+    """A bank of 1,489 filters runs as two groups; its first 1,488 columns
+    alone (the same weights) run as one.  Every column the two launches
+    share, the energy column too, has the same bits."""
+    dev = _device()
+    tc, padded, kw = _bank_case(dev, INT8_FILTER_LIMIT + 1, 92, precision=precision)
+    kw["dft_size"] = tc.dft_size
+    plan = functools.partial(K.int8_launch_plan, dev, frame_shift=160, frame_length=400)
+    assert plan(n_filts=INT8_FILTER_LIMIT + 1)["groups"] == 2
+    assert plan(n_filts=INT8_FILTER_LIMIT)["groups"] == 1
+    one = dict(tc.params)
+    for key in ("i8k_w_hi", "i8k_w_lo", "i8k_w_nyq"):
+        one[key] = tc.params[key][:, :INT8_FILTER_LIMIT].contiguous()
+    grouped = K.stft_feats_int8(padded, tc.params, **kw)
+    single = K.stft_feats_int8(padded, one, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(grouped[..., : INT8_FILTER_LIMIT + 1], single)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["double", "accurate"])
+def test_int8_filter_groups_with_slabs(precision):
+    """150 ms frames (K 2400, dft 4096) and 1,489 filters: two groups of
+    16-frame tiles, each holding its digit planes in slabs of K, against
+    the plain version."""
+    dev = _device()
+    p = K.int8_launch_plan(dev, frame_shift=160, frame_length=2400, n_filts=INT8_FILTER_LIMIT + 1)
+    assert p["groups"] == 2 and p["slab"] < 75, p
+    tc, padded, kw = _bank_case(dev, INT8_FILTER_LIMIT + 1, 93, frame_length_ms=150,
+                                precision=precision)
+    kw["dft_size"] = tc.dft_size
+    K.reset_launch_counts()
     got = K.stft_feats_int8(padded, tc.params, **kw)
     assert K.launch_counts()["stft_feats_int8"] == 1
     _close(got, K.stft_feats_int8_plain(padded, tc.params, **kw), TOL_INT8, True)
@@ -554,3 +602,111 @@ def test_compute_batch_on_gpu_matches_cpu(precision, fft_mode, kernel, tol):
         for row, n in enumerate(want_n.tolist()):
             err = (got[row, :n].cpu() - want[row, :n]).abs().max().item() if n else 0.0
             assert err <= tol, (row, err)
+
+
+# --- the signal ops (plain torch ops) on the card against the CPU -----------
+
+TOL_SIGNAL = 1e-5  # float32 on the card vs float64 (tests/test_resample.py:44)
+
+
+def _tones(batch, seconds, rate=16000, seed=0):
+    """Tones of 100 + 9b Hz with 0.05 noise, the signals of bench.py's pitch
+    throughput."""
+    t = np.arange(int(seconds * rate)) / rate
+    noise = np.random.RandomState(seed).randn(batch, t.size)
+    f0 = 100.0 + 9.0 * np.arange(batch)[:, None]
+    return np.sin(2 * np.pi * f0 * t) + 0.05 * noise
+
+
+@pytest.mark.cuda
+def test_pitch_on_gpu_matches_cpu():
+    """float32 pitch on the card against the float64 port on the CPU: f0
+    within rtol 1e-3 on at least 99% of the frames the CPU calls voiced
+    (nccf > 0.5), the POV column within 1e-3, equal valid counts (ragged
+    rows too)."""
+    from speech_tpu_torch.ops import pitch as TP
+
+    dev = _device()
+    x = _tones(6, 2.0)
+    lengths = np.array([32000, 32000, 20000, 32000, 9000, 32000])
+    x *= np.arange(x.shape[1]) < lengths[:, None]
+    track = TP.kaldi_pitch(torch.tensor(x, dtype=torch.float32, device=dev), 16000,
+                           lengths=lengths)
+    feats, counts = TP.pitch_feats(torch.tensor(x, dtype=torch.float32, device=dev), 16000,
+                                   lengths=lengths, return_valid=True)
+    want = TP.kaldi_pitch(x, 16000, lengths=lengths, device="cpu")
+    want_feats, want_counts = TP.pitch_feats(x, 16000, lengths=lengths, return_valid=True,
+                                             device="cpu")
+    assert torch.equal(counts.cpu(), want_counts)
+    voiced = (want.nccf > 0.5) & want.valid
+    close = torch.isclose(track.f0.cpu().double(), want.f0, rtol=1e-3, atol=0)[voiced]
+    assert close.float().mean().item() >= 0.99, close.float().mean().item()
+    assert (feats[..., 0].cpu().double() - want_feats[..., 0]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up,down", [(1, 2), (3, 2), (441, 160)])
+def test_resample_on_gpu_matches_cpu(up, down):
+    from speech_tpu_torch.ops import resample as TR
+
+    dev = _device()
+    x = np.random.RandomState(up + down).randn(4, 16000) * 0.3
+    got = TR.resample(torch.tensor(x, dtype=torch.float32, device=dev), up, down)
+    want = TR.resample(x, up, down, device="cpu")
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert (got.cpu().double() - want).abs().max().item() <= TOL_SIGNAL
+
+
+@pytest.mark.cuda
+def test_augment_on_gpu_matches_cpu():
+    """speed perturbation, reverberation and noise mixing at given offsets
+    on the card against the float64 CPU; SpecAugment and random gain from
+    a generator on the card keep their contracts."""
+    from speech_tpu_torch.ops import augment as TA
+
+    dev = _device()
+    rng = np.random.RandomState(17)
+    x = rng.randn(4, 16000) * 0.3
+    x32 = torch.tensor(x, dtype=torch.float32, device=dev)
+    for factor in (0.9, 1.1):
+        got = TA.speed_perturb(x32, factor)
+        want = TA.speed_perturb(x, factor, device="cpu")
+        assert (got.cpu().double() - want).abs().max().item() <= TOL_SIGNAL
+    rir = rng.randn(4800) * np.exp(-np.arange(4800) / 800.0) * 0.05
+    rir[100] = 1.0
+    got = TA.reverberate(x32, rir)
+    want = TA.reverberate(x, rir, device="cpu")
+    assert (got.cpu().double() - want).abs().max().item() <= TOL_SIGNAL
+    noise = rng.randn(20000)
+    offsets = torch.tensor([0, 5, 19999, 12345])
+    got = TA._mix_noise_at(x32, torch.tensor(noise, device=dev), offsets.to(dev), 10.0, None)
+    want = TA._mix_noise_at(torch.tensor(x), torch.tensor(noise), offsets, 10.0, None)
+    assert (got.cpu().double() - want).abs().max().item() <= TOL_SIGNAL
+    gen = torch.Generator(device=dev).manual_seed(5)
+    feats = torch.randn(4, 200, 40, device=dev)
+    masked = TA.spec_augment(gen, feats)
+    changed = masked != feats
+    assert changed.any() and bool((masked[changed] == 0).all())
+    gained = TA.random_gain(torch.Generator(device=dev).manual_seed(6), x32)
+    db = 20 * torch.log10((gained[:, 0] / x32[:, 0]).abs())
+    assert bool((db.abs() <= 6.0 + 1e-4).all())
+
+
+@pytest.mark.cuda
+def test_feats_to_signal_on_gpu_matches_cpu():
+    from speech_tpu_torch.ops import invert as TI
+
+    """Four Griffin-Lim iterations on the card against float64 on the CPU,
+    on features of noise (as chip_smoke.py inverts); float32 Griffin-Lim
+    amplifies rounding more on a tone's narrow-band features."""
+    dev = _device()
+    bank = {"name": "fbank", "num_filts": 40, "sampling_rate": 16000}
+    gpu = STFTFrameComputer(dict(bank), frame_length_ms=25, frame_shift_ms=10, device=dev)
+    cpu = STFTFrameComputer(dict(bank), frame_length_ms=25, frame_shift_ms=10, device="cpu",
+                            dtype="float64")
+    x = np.random.RandomState(18).randn(2, 16000) * 0.1
+    feats, _ = cpu.compute_batch(x, np.full(2, x.shape[1]))
+    got = TI.feats_to_signal(feats.to(dev, torch.float32), gpu, n_iters=4)
+    want = TI.feats_to_signal(feats, cpu, n_iters=4)
+    assert got.device.type == "cuda"
+    assert (got.cpu().double() - want).abs().max().item() <= 1e-4

@@ -1,5 +1,5 @@
 """speech_tpu_torch.post (host numpy classes) against speech_tpu.post: the
-same outputs in float64, and the not-yet-ported paths raise."""
+same outputs in float64, statistics and transforms from files too."""
 
 import numpy as np
 import pytest
@@ -116,11 +116,33 @@ def test_standardize_edge_cases_match_jax(tmp_path):
             assert np.array_equal(np.fromfile(path).reshape(2, 4), ts.stats)
 
 
-def test_not_ported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpost.Standardize("stats.npy")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpost.Transform("lda.npy")
+def test_not_ported_paths_raise(tmp_path):
+    """Every path of post.py is ported now: statistics and transforms load
+    from files (.npy, raw binary, Kaldi tables) as the JAX package loads
+    them."""
+    from speech_tpu_torch.io import kaldi_tables as tkt
+
+    ts = tpost.Standardize()
+    ts.accumulate(_feats((8, 3), positive=True))  # raw stats must look plausible
+    npy, raw, ark = (str(tmp_path / n) for n in ("stats.npy", "stats.bin", "stats.ark"))
+    ts.save(npy)
+    ts.stats.tofile(raw)
+    with tkt.KaldiTableWriter(f"ark:{ark}") as w:
+        w.write("global", ts.stats)
+    y = _feats((9, 3), seed=2)
+    for path, kw in ((npy, {}), (raw, {"force_as": "file"}), (f"ark:{ark}", {})):
+        got, want = tpost.Standardize(path, **kw), jpost.Standardize(path, **kw)
+        assert np.array_equal(got.stats, want.stats), path
+        assert np.array_equal(got.stats, ts.stats), path
+        assert np.array_equal(got.apply(y), want.apply(y))
+    lda = np.arange(12.0).reshape(3, 4) / 7
+    np.save(str(tmp_path / "lda.npy"), lda)
+    tt = tpost.Transform(str(tmp_path / "lda.npy"))
+    assert np.array_equal(tt.matrix, lda)
+    assert np.array_equal(tt.apply(y), jpost.Transform(str(tmp_path / "lda.npy")).apply(y))
+    np.array([-1.0, 2.5, 3.0]).tofile(str(tmp_path / "bad.bin"))
+    with pytest.raises(IOError):
+        tpost.Standardize(str(tmp_path / "bad.bin"), force_as="file")
     # PLP and VADTrim are ported (ops/plp.py, ops/vad.py): they build
     assert isinstance(
         t_factory(tpost.PostProcessor, {"name": "plp", "center_hz": [100.0, 200.0],
