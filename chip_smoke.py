@@ -49,7 +49,21 @@ Phases (each passes or the script exits non-zero):
     read back by ``Standardize(rfilename=)``, then preemphasis,
     ``compute_batch`` at 'double' and standardization on the card, bitwise
     equal to the same chain on the arrays held in memory;
-14. print the kernels line and, last, the device line.
+14. streaming at ``bench.py``'s widths (``bench.py:438-512``): the STFT
+    stream (the fbank-40 config, chunk 1600), the SI stream (gammatone-40
+    'highest') and the pitch stream (``bench.py``'s tones, lookahead 50):
+    the latency of one 100 ms chunk read back every tick, the amortised ms
+    of a chunk over 50 ticks, and 16 sessions x 64 chunks (6.4 s each) in
+    one wide call on the stream axis, each held against its batch path on
+    the card (STFT and SI within 1e-4; pitch f0 within rtol 1e-3 on 99% of
+    the batch's voiced frames); SI 'double' on 2 x 3 s of ``test.wav``
+    against float64 on the CPU; a 60 s pitch session in float32 against
+    float64 on the card; the post pipeline (deltas, sliding CMVN, stack)
+    in float64 against the batch ops within 1e-9, and timed in float32.
+    Every timed tick runs under ``torch.cuda.set_sync_debug_mode("error")``,
+    so a host synchronisation inside a tick fails the run; the profiler
+    counts a wide tick's kernel launches and their device time;
+15. print the kernels line and, last, the device line.
 
 B2 and B4 also run on banks wider than one filter group (phases 3-4):
 B2 at 1,489 and 2,978 filters, both tiers, on 16 x 15 s.
@@ -57,6 +71,7 @@ B2 at 1,489 and 2,978 filters, both tiers, on 16 x 15 s.
 It imports torch, numpy and ``speech_tpu_torch`` only.
 """
 
+import contextlib
 import glob
 import json
 import os
@@ -65,6 +80,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import wave
 
 import numpy as np
@@ -110,6 +126,11 @@ SOURCE = "speech_tpu_torch/csrc/stft_kernels.cu"  # B1, B3
 INT8_SOURCE = "speech_tpu_torch/csrc/int8_kernels.cu"  # B2
 DOUBLE_SOURCE = "speech_tpu_torch/csrc/double_kernels.cu"  # B4
 COMPUTE_PATH = ("stft_feats_rows", "stft_feats_frames", "stft_feats_int8")
+# streaming (bench.py:438-512): 100 ms chunks; 16 sessions x 64 chunks in
+# one wide call; 50 ticks for the per-chunk times
+STREAM_CHUNK, STREAM_SESSIONS, STREAM_DEPTH, STREAM_TICKS = 1600, 16, 64, 50
+TOL_PIPE = 1e-9  # the float64 pipeline vs the batch ops (sums re-associated)
+PITCH_LONG_SECONDS = 60
 
 
 def fail(msg):
@@ -147,6 +168,95 @@ def bound_ms(entry):
     t_ops = sum(ops / peak for ops, peak in entry["ops"]) * 1e3
     t_bytes = entry["nbytes"] / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+@contextlib.contextmanager
+def no_sync():
+    """Fail on any host synchronisation inside the block."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def wall_ms(fn, reps=3):
+    """Median host milliseconds of ``fn()`` up to the card's last kernel
+    (a warm-up call first)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def kernel_split(fn, top=6):
+    """``fn()`` under the profiler: its kernel launches, their summed
+    device ms, and the ``top`` kernel names by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return len(kernels), busy, [(n[:48], round(ms, 3)) for n, ms in names]
+
+
+def tick_ms(stream, chunk):
+    """(latency, amortised) ms of one chunk a tick over STREAM_TICKS ticks
+    of one session: read back every tick, then once at the end."""
+    import torch
+
+    state = stream.init_state()
+    state, feats, n = stream._process_impl(state, chunk, chunk.shape[-1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STREAM_TICKS):
+        with no_sync():
+            state, feats, n = stream._process_impl(state, chunk, chunk.shape[-1])
+        feats.reshape(-1)[:1].cpu(), n.cpu()  # the round trip a server pays
+    latency = (time.perf_counter() - t0) / STREAM_TICKS * 1e3
+    t0 = time.perf_counter()
+    with no_sync():
+        for _ in range(STREAM_TICKS):
+            state, feats, n = stream._process_impl(state, chunk, chunk.shape[-1])
+    feats.reshape(-1)[:1].cpu()
+    return latency, (time.perf_counter() - t0) / STREAM_TICKS * 1e3
+
+
+def wide_call(stream):
+    """A streamer's call for a buffer of many chunks: ``process_wide``
+    where it has one (STFT, SI), else the contract's ``_process_impl``
+    (pitch takes any multiple of its chunk; the pipeline)."""
+    return getattr(stream, "process_wide", stream._process_impl)
+
+
+def streamed_rows(stream, sigs):
+    """Every session of ``sigs (S, W)`` in one wide call, then finalize:
+    per session its valid rows (a list of tensors on the card)."""
+    import torch
+
+    state = stream.init_state(streams=sigs.shape[0])
+    with no_sync():
+        state, feats, n = wide_call(stream)(state, sigs, sigs.shape[-1])
+    fin, fin_n = stream._finalize_impl(state)
+    return [torch.cat([feats[s, : int(n[s])], fin[s, : int(fin_n[s])]])
+            for s in range(sigs.shape[0])]
 
 
 def read_wav(path):
@@ -762,7 +872,10 @@ def main():
     check(torch.equal(n_files, n_mem) and torch.equal(out_files, out_mem),
           "the file path differs from the in-memory chain")
 
-    # 14. the kernels line, the card, the device line
+    # 14. streaming
+    streaming_phase(dev, here, speech)
+
+    # 15. the kernels line, the card, the device line
     kernels = []
     for name, e in entries.items():
         bound, bound_by = bound_ms(e)
@@ -779,6 +892,193 @@ def main():
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+def pitch_split(sp, sigs):
+    """Where a wide pitch tick's time goes: the host ms (to the card's last
+    kernel) and launches of one absorbed chunk of every session and of its
+    parts, and of the one backtrack of all the tick's chunks."""
+    import torch
+
+    from speech_tpu_torch.ops import pitch
+
+    S, N, F = sigs.shape[0], sp.chunk_size, sp.max_frames_chunk
+    state = sp.init_state(streams=S)
+    timeline = sp._timeline(state, STREAM_DEPTH * F)
+    full = torch.full((S,), N, device=sigs.device)
+    every = torch.ones(S, dtype=torch.bool, device=sigs.device)
+    buf = torch.cat([state.raw_carry, sigs[:, :N]], dim=1)
+    work = sp._front(buf)
+    frames = torch.randn(S, F, sp.span, device=sigs.device)
+    ballast = torch.ones(S, device=sigs.device)
+    costs = torch.randn(STREAM_DEPTH, S, sp.n_lags, device=sigs.device)
+    ends = torch.full((STREAM_DEPTH, S), sp.ring_len, device=sigs.device)
+    parts = {
+        "absorb": lambda: sp._absorb(state, sigs[:, :N], full, every, timeline, state.n_frames),
+        "resample": lambda: sp._front(buf),
+        "lowpass": lambda: pitch._lowpass(work, sp.work_rate, sp.lowpass_cutoff),
+        "nccf": lambda: pitch._nccf_from_frames(frames, sp.nccf_window, sp.tables, ballast),
+        "backtrack": lambda: sp._emit_tracks(timeline, costs, ends, ends, ends - sp.lookahead, F),
+    }
+    out = {}
+    for name, fn in parts.items():
+        with no_sync():
+            ms = wall_ms(fn, reps=5)
+        out[name] = (ms, kernel_split(fn)[0])
+    rest = out["absorb"][0] - sum(out[k][0] for k in ("resample", "lowpass", "nccf"))
+    print(f"pitch wide tick split ({S} sessions): one absorbed chunk {out['absorb'][0]:.3f} ms, "
+          f"{out['absorb'][1]} launches = resample {out['resample'][0]:.3f} ms "
+          f"({out['resample'][1]}) + lowpass {out['lowpass'][0]:.3f} ({out['lowpass'][1]}) + "
+          f"NCCF {out['nccf'][0]:.3f} ({out['nccf'][1]}) + {F} Viterbi steps and bookkeeping "
+          f"{rest:.3f}; the backtrack of {STREAM_DEPTH} chunks ({sp.ring_len} steps) "
+          f"{out['backtrack'][0]:.3f} ms ({out['backtrack'][1]} launches)", flush=True)
+
+
+def streaming_phase(dev, here, speech):
+    """Phase 14: the streamers and the post pipeline at bench.py's widths,
+    timed ticks under sync checking, each held against its batch path."""
+    import torch
+
+    from speech_tpu_torch import post
+    from speech_tpu_torch.compute import SIFrameComputer, STFTFrameComputer
+    from speech_tpu_torch.ops import pitch, postops
+    from speech_tpu_torch.streaming import StreamingPitch, StreamingSI, StreamingSTFT
+    from speech_tpu_torch.streaming_post import StreamingPipeline
+
+    # set_sync_debug_mode warns once that it is a prototype
+    warnings.filterwarnings("ignore", message="Synchronization debug mode")
+    warnings.filterwarnings("ignore", message="Warning: Profiler clears events")
+    S, C, depth = STREAM_SESSIONS, STREAM_CHUNK, STREAM_DEPTH
+    W = C * depth
+    audio_s = S * W / RATE
+    rng = np.random.RandomState(2)
+    sigs = torch.tensor((rng.randn(S, W) * 0.1).astype(np.float32), device=dev)
+    lengths = np.full(S, W)
+
+    def report(label, stream, x):
+        lat, amort = tick_ms(stream, x[0, :C])
+        wide = wall_ms(lambda: streamed_ticks(stream, x))
+        n_k, busy, top = kernel_split(lambda: streamed_ticks(stream, x))
+        print(f"{label} stream: latency {lat:.3f} ms a 100 ms chunk (read back every tick), "
+              f"amortised {amort:.3f} ms over {STREAM_TICKS} ticks; {S} x {depth} chunks in one "
+              f"wide call {wide:.3f} ms ({audio_s / (wide / 1e3):.0f} audio-s/s), {n_k} kernel "
+              f"launches, {busy:.3f} ms of device time (idle {100 * (1 - busy / wide):.1f}%); "
+              f"top kernels {top}", flush=True)
+
+    def streamed_ticks(stream, x):
+        state = stream.init_state(streams=x.shape[0])
+        with no_sync():
+            return wide_call(stream)(state, x, x.shape[-1])
+
+    def max_err(rows, want, counts):
+        errs = []
+        for s, r in enumerate(rows):
+            check(r.shape[0] == int(counts[s]), f"stream rows {r.shape[0]} vs batch {int(counts[s])}")
+            check(bool(torch.isfinite(r).all()), "non-finite streamed rows")
+            errs.append((r - want[s, : r.shape[0]]).abs().max().item())
+        return max(errs)
+
+    # STFT: the fbank-40 computer of bench.py:117-124 ('highest', plain path)
+    stft = STFTFrameComputer(dict(BANK), device=dev, **MAIN)
+    stream = StreamingSTFT(stft, C)
+    want, counts = stft.compute_batch(sigs, lengths)
+    err = max_err(streamed_rows(stream, sigs), want, counts)
+    print(f"STFT stream {S} x {W / RATE:.1f} s vs compute_batch: max abs {err:.3e} "
+          f"(tol {TOL_FLOAT:g})", flush=True)
+    check(err <= TOL_FLOAT, f"STFT stream disagrees with compute_batch: {err}")
+    report("STFT", stream, sigs)
+
+    # SI: gammatone-40 'highest' (bench.py:126-137), then 'double' on test.wav
+    si = SIFrameComputer(dict(SI_BANKS["gammatone"]), frame_shift_ms=10, include_energy=True,
+                         dtype="float32", device=dev)
+    si_stream = StreamingSI(si, C)
+    want, counts = si.compute_batch(sigs, lengths)
+    err = max_err(streamed_rows(si_stream, sigs), want, counts)
+    print(f"SI stream ({si_stream.conv_mode}) {S} x {W / RATE:.1f} s vs compute_batch: max abs "
+          f"{err:.3e} (tol {TOL_SI_FLOAT:g})", flush=True)
+    check(err <= TOL_SI_FLOAT, f"SI stream disagrees with compute_batch: {err}")
+    report("SI gammatone-40", si_stream, sigs)
+    wav = np.stack([speech[: 3 * RATE], np.roll(speech, 777)[: 3 * RATE]])
+    sd = SIFrameComputer(dict(SI_BANKS["gammatone"]), frame_shift_ms=10, include_energy=True,
+                         dtype="float32", precision="double", device=dev)
+    s64 = SIFrameComputer(dict(SI_BANKS["gammatone"]), frame_shift_ms=10, include_energy=True,
+                          dtype="float64", conv_mode="matmul", device="cpu")
+    rows = streamed_rows(StreamingSI(sd, C), torch.tensor(wav.astype(np.float32), device=dev))
+    err = 0.0
+    for s, r in enumerate(rows):
+        want64 = s64.compute_full(wav[s].astype(np.float64))
+        check(r.shape[0] == want64.shape[0], "SI 'double' stream: frame count")
+        err = max(err, np.abs(r.cpu().numpy().astype(np.float64) - want64).max())
+    print(f"SI 'double' stream 2 x 3 s of test.wav vs float64 (CPU): max abs {err:.3e} "
+          f"(tol {TOL_F64:g})", flush=True)
+    check(err <= TOL_F64, f"SI 'double' stream vs float64: {err}")
+    del sd, rows
+    torch.cuda.empty_cache()
+
+    # pitch: bench.py's tones (100 + 9b Hz plus 0.05 noise, seed 0), 6.4 s
+    p_rng = np.random.RandomState(0)
+    t = np.arange(W) / RATE
+    tones = np.stack([np.sin(2 * np.pi * (100.0 + 9.0 * b) * t) + 0.05 * p_rng.randn(W)
+                      for b in range(S)]).astype(np.float32)
+    p_sigs = torch.tensor(tones, device=dev)
+    p_stream = StreamingPitch(RATE, C, lookahead_frames=50, device=dev)
+    rows = streamed_rows(p_stream, p_sigs)
+    track = pitch.kaldi_pitch(p_sigs, RATE, lengths=torch.full((S,), W, device=dev))
+    voiced = (track.nccf > 0.5) & track.valid
+    close = 0
+    for s, r in enumerate(rows):
+        check(r.shape[0] == int(track.valid[s].sum()), "pitch stream: frame count")
+        ok = torch.isclose(r[:, 0], track.f0[s], rtol=TOL_PITCH, atol=0) | ~voiced[s]
+        close += int(ok.sum()) - int((~voiced[s]).sum())
+    share = close / int(voiced.sum())
+    print(f"pitch stream {S} x {W / RATE:.1f} s vs kaldi_pitch on the card: f0 within rtol "
+          f"{TOL_PITCH:g} on {100 * share:.2f}% of {int(voiced.sum())} voiced frames", flush=True)
+    check(share >= 0.99, f"pitch stream f0 agrees on only {100 * share:.2f}%")
+    report("pitch", p_stream, p_sigs)
+    pitch_split(p_stream, p_sigs)
+    # one long session, float32 against float64 on the card: where the
+    # reference's unshifted Viterbi costs drift
+    n_long = PITCH_LONG_SECONDS * RATE
+    tl = np.arange(n_long) / RATE
+    f0t = 150.0 + 40.0 * np.sin(2 * np.pi * 0.7 * tl)
+    voice = np.sin(2 * np.pi * np.cumsum(f0t) / RATE) + 0.1 * np.random.RandomState(21).randn(n_long)
+    tracks = {}
+    for dtype in (torch.float32, torch.float64):
+        sp = StreamingPitch(RATE, C, lookahead_frames=50, dtype=dtype, device=dev)
+        t0 = time.perf_counter()
+        (tracks[dtype],) = streamed_rows(sp, torch.tensor(voice[None], dtype=dtype, device=dev))
+        torch.cuda.synchronize()
+        long_ms = (time.perf_counter() - t0) * 1e3
+    f32, f64 = tracks[torch.float32].double(), tracks[torch.float64]
+    check(f32.shape == f64.shape, "long pitch session: frame counts differ")
+    v = f64[:, 1] > 0.5
+    share = torch.isclose(f32[v, 0], f64[v, 0], rtol=TOL_PITCH, atol=0).double().mean().item()
+    print(f"pitch stream, one {PITCH_LONG_SECONDS} s session in one call: float32 vs float64 "
+          f"on the card, f0 within rtol {TOL_PITCH:g} on {100 * share:.2f}% of {int(v.sum())} "
+          f"voiced frames; float64 call {long_ms:.1f} ms", flush=True)
+    check(share >= 0.99, f"long pitch session: float32 agrees on only {100 * share:.2f}%")
+    torch.cuda.empty_cache()
+
+    # the post pipeline: float64 against the batch ops, then timed in float32
+    def pipeline(dtype):
+        comp = STFTFrameComputer(dict(BANK), device=dev, **{**MAIN, "dtype": dtype})
+        posts = [post.Deltas(2), post.SlidingCMVN(center=False), post.Stack(3)]
+        return comp, StreamingPipeline(comp, posts, chunk_size=C)
+
+    comp64, pipe64 = pipeline("float64")
+    sigs64 = sigs.double()
+    rows = streamed_rows(pipe64, sigs64)
+    feats64, _ = comp64.compute_batch(sigs64, lengths)
+    want = postops.deltas(feats64, postops.delta_filters(2))
+    want = postops.sliding_cmvn(want, window=600, center=False, min_window=100)
+    want = postops.stack(want, 3)
+    err = max_err(rows, want, [want.shape[1]] * S)
+    print(f"pipeline (deltas, sliding CMVN, stack) float64 {S} x {W / RATE:.1f} s vs the batch "
+          f"ops: {want.shape[1]} rows of {want.shape[2]} a session, max abs {err:.3e} "
+          f"(tol {TOL_PIPE:g})", flush=True)
+    check(err <= TOL_PIPE, f"pipeline disagrees with the batch ops: {err}")
+    _, pipe32 = pipeline("float32")
+    report("pipeline float32", pipe32, sigs)
 
 
 if __name__ == "__main__":

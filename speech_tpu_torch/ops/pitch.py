@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ._device import as_tensor
+from ._device import as_tensor, host_constant
 from .framing import frame_padded
 from .postops import delta_filters, deltas
 from .resample import fir_conv_matmul, resample
@@ -131,9 +131,9 @@ def _lowpass_fir(rate: float, cutoff: float, half_width: int = 32):
 
 
 def _const(x, like):
-    """A host table as a tensor of ``like``'s dtype and device (a copy:
-    the cached tables are read-only)."""
-    return torch.tensor(np.asarray(x), dtype=like.dtype, device=like.device)
+    """A host table as a tensor of ``like``'s dtype and device, copied
+    there once (:func:`._device.host_constant`)."""
+    return host_constant(np.asarray(x), like.dtype, like.device)
 
 
 def _lowpass(signal, rate: float, cutoff: float):

@@ -26,6 +26,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ._device import host_constant
 from .stft import ieee_float32
 
 __all__ = [
@@ -157,11 +158,11 @@ def plp(
     if not torch.is_floating_point(x):
         x = x.to(torch.float32)
     dt, dev = x.dtype, x.device
-    E = torch.tensor(equal_loudness(center_hz), dtype=dt, device=dev)
+    E = host_constant(equal_loudness(center_hz), dt, dev)
     S = torch.clamp_min(x * E, eps)
     S = torch.exp(compress * torch.log(S))
     S = torch.cat([S[..., :1], S, S[..., -1:]], dim=-1)
-    mat = torch.tensor(autocorr_idft_matrix(B, order), dtype=dt, device=dev)
+    mat = host_constant(autocorr_idft_matrix(B, order), dt, dev)
     with ieee_float32():
         r = torch.matmul(S, mat)
     tiny = float(torch.finfo(dt).tiny)
@@ -169,7 +170,8 @@ def plp(
     c = _lpc_cepstrum(a, num_ceps)
     lift = _lifter_weights(num_ceps, lifter)
     cols = [torch.log(torch.clamp_min(err, tiny))]
-    cols += [ci * torch.tensor(li, dtype=dt, device=dev) for ci, li in zip(c, lift)]
+    lift = host_constant(lift, dt, dev)
+    cols += [ci * lift[i] for i, ci in enumerate(c)]
     return torch.stack(cols, dim=-1)
 
 

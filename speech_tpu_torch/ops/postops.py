@@ -15,6 +15,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ._device import host_constant
 from .stft import ieee_float32
 
 __all__ = [
@@ -219,7 +220,10 @@ def standardize_with_stats(features, stats, norm_var: bool = True, feat_axis: in
     """Global standardization from ``(2, F+1)`` sufficient statistics
     (reference: post.py:258-276)."""
     features = torch.as_tensor(features)
-    stats = torch.as_tensor(stats, dtype=features.dtype, device=features.device)
+    if isinstance(stats, torch.Tensor):
+        stats = stats.to(device=features.device, dtype=features.dtype)
+    else:
+        stats = host_constant(np.asarray(stats), features.dtype, features.device)
     feat_axis = feat_axis % features.ndim
     count = stats[0, -1]
     means = stats[0, :-1] / count
@@ -259,7 +263,7 @@ def dct_matrix(num_feats: int, num_ceps: int = None, lifter: float = 0.0) -> np.
 def _feature_matmul(features, mat, feat_axis: int):
     """``features`` times a host matrix along ``feat_axis``, in IEEE
     float32/float64 (TF32 off)."""
-    mat = torch.tensor(mat, dtype=features.dtype, device=features.device)
+    mat = host_constant(mat, features.dtype, features.device)
     moved = torch.movedim(features, feat_axis, -1)
     with ieee_float32():
         return torch.matmul(moved, mat)
@@ -300,7 +304,7 @@ def transform(features, matrix, feat_axis: int = -1):
         )
     out = _feature_matmul(features, np.ascontiguousarray(matrix.T), feat_axis)
     if bias is not None:
-        out = out + torch.tensor(bias, dtype=features.dtype, device=features.device)
+        out = out + host_constant(bias, features.dtype, features.device)
     return torch.movedim(out, -1, feat_axis)
 
 
@@ -308,7 +312,7 @@ def _pcen_compress(features, m, alpha, delta, power, eps):
     """The PCEN gain/compression stage given the smoothed energies ``m``."""
 
     def param(v):
-        return torch.as_tensor(np.asarray(v), dtype=features.dtype).to(features.device)
+        return host_constant(np.asarray(v), features.dtype, features.device)
 
     alpha, delta, power = param(alpha), param(delta), param(power)
     gain = torch.exp(-alpha * torch.log(eps + m))

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
-from ._device import as_tensor
+from ._device import as_tensor, host_constant
 from .framing import frame_padded
 from .stft import ieee_float32
 
@@ -84,6 +84,15 @@ def _toeplitz_block(h_key, n_phases: int, stride: int, group: int, depth: int = 
     return band.transpose(1, 2, 0).reshape(rows, group * n_phases)
 
 
+@lru_cache(maxsize=32)
+def _toeplitz_tensor(h_key, n_phases: int, stride: int, group: int, depth: int, dtype, device):
+    """:func:`_toeplitz_block` on ``device``, copied there once: a
+    streaming tick that filters queues no copy from the host."""
+    return torch.as_tensor(
+        _toeplitz_block(h_key, n_phases, stride, group, depth), dtype=dtype, device=device
+    )
+
+
 def fir_conv_matmul(
     signal,
     h,
@@ -122,10 +131,8 @@ def fir_conv_matmul(
     D = max(2, -(-((G - 1) * stride + W) // (G * stride)))
     out_blocks = -(-n_out // P)
     n_blocks = -(-out_blocks // G)
-    T = torch.as_tensor(
-        _toeplitz_block(tuple(h.ravel().tolist()), P, stride, G, D),
-        dtype=signal.dtype,
-        device=signal.device,
+    T = _toeplitz_tensor(
+        tuple(h.ravel().tolist()), P, stride, G, D, signal.dtype, signal.device
     )
     padded = TF.pad(signal, (int(pad_left), 0))
     frames = frame_padded(padded, n_blocks, D * G * stride, G * stride)
@@ -207,7 +214,7 @@ def resample(
         return fir_conv_matmul(
             signal, phi, stride=M, pad_left=-k_min, n_out=n_out, precision=precision
         )
-    phi_t = torch.as_tensor(phi.T.copy(), dtype=signal.dtype, device=signal.device)
+    phi_t = host_constant(phi.T, signal.dtype, signal.device)
     pad_left = -k_min
     pad_right = max((n_blocks - 1) * M + k_min + W - N, 0)
     padded = TF.pad(signal, (pad_left, pad_right))

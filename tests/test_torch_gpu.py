@@ -1,5 +1,6 @@
-"""The CUDA kernels of speech_tpu_torch against their plain versions, on a
-GPU.  Every test here is marked ``cuda`` and skips without one.
+"""The CUDA kernels of speech_tpu_torch against their plain versions, and
+the other device paths against the CPU, on a GPU.  Every test here is
+marked ``cuda`` and skips without one.
 
 This file imports no jax, so it also runs where only PyTorch is installed;
 on a GPU machine, from the repo root:
@@ -710,3 +711,70 @@ def test_feats_to_signal_on_gpu_matches_cpu():
     want = TI.feats_to_signal(feats, cpu, n_iters=4)
     assert got.device.type == "cuda"
     assert (got.cpu().double() - want).abs().max().item() <= 1e-4
+
+
+def _stream_pair(kind, dev):
+    """A streamer on the card in float32 and its float64 twin on the CPU."""
+    from speech_tpu_torch import post as TP
+    from speech_tpu_torch.compute import SIFrameComputer
+    from speech_tpu_torch.streaming import StreamingPitch, StreamingSI, StreamingSTFT
+    from speech_tpu_torch.streaming_post import StreamingPipeline
+
+    def make(device, dtype):
+        if kind == "pitch":
+            return StreamingPitch(16000, 1600, lookahead_frames=5, dtype=dtype, device=device)
+        if kind == "si":
+            bank = {"name": "gammatone", "scaling_function": "mel", "num_filts": 40,
+                    "sampling_rate": 16000}
+            return StreamingSI(SIFrameComputer(bank, include_energy=True, dtype=dtype,
+                                               device=device), 1600)
+        comp = STFTFrameComputer(dict(BANK), frame_length_ms=25, frame_shift_ms=10,
+                                 include_energy=True, dtype=dtype, device=device)
+        if kind == "stft":
+            return StreamingSTFT(comp, 1600)
+        return StreamingPipeline(comp, [TP.Deltas(2), TP.SlidingCMVN(center=False, min_window=10),
+                                        TP.Stack(3)], chunk_size=1600)
+
+    return make(dev, "float32"), make("cpu", "float64")
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:Synchronization debug mode is a prototype")
+@pytest.mark.parametrize("kind", ["stft", "si", "pitch", "pipeline"])
+def test_stream_ticks_queue_no_sync(kind):
+    """Three sessions on the stream axis, four ticks of 100 ms chunks with
+    their own valid lengths, each tick on the card under
+    set_sync_debug_mode("error"); every session's rows against the same
+    stream in float64 on the CPU (pitch: f0 within rtol 1e-3)."""
+    dev = _device()
+    card, host = _stream_pair(kind, dev)
+    rng = np.random.RandomState(19)
+    t = np.arange(4 * 1600) / 16000
+    x = np.stack([np.sin(2 * np.pi * f * t) + 0.1 * rng.randn(t.size) for f in (120, 190, 260)])
+    valids = np.array([[1600, 1600, 1600], [1600, 700, 0], [1600, 1600, 1600], [900, 1600, 1600]])
+    rows = {"card": [[], [], []], "host": [[], [], []]}
+    states = {"card": card.init_state(streams=3), "host": host.init_state(streams=3)}
+    for i, v in enumerate(valids):
+        chunk = x[:, i * 1600 : (i + 1) * 1600]
+        on_card = torch.tensor(chunk, dtype=torch.float32, device=dev)
+        v_card = torch.tensor(v, device=dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            states["card"], out, n = card._process_impl(states["card"], on_card, v_card)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        states["host"], hout, hn = host._process_impl(states["host"], chunk, torch.tensor(v))
+        for s in range(3):
+            rows["card"][s].append(out[s, : int(n[s])].cpu().double())
+            rows["host"][s].append(hout[s, : int(hn[s])])
+    for side, stream in (("card", card), ("host", host)):
+        out, n = stream._finalize_impl(states[side])
+        for s in range(3):
+            rows[side][s].append(out[s, : int(n[s])].cpu().double())
+    for s in range(3):
+        got, want = torch.cat(rows["card"][s]), torch.cat(rows["host"][s])
+        assert got.shape == want.shape and got.shape[0] > 0
+        if kind == "pitch":
+            assert torch.allclose(got[:, 0], want[:, 0], rtol=1e-3, atol=0)
+        else:
+            assert (got - want).abs().max().item() <= TOL_FLOAT
