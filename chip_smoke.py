@@ -63,7 +63,33 @@ Phases (each passes or the script exits non-zero):
     Every timed tick runs under ``torch.cuda.set_sync_debug_mode("error")``,
     so a host synchronisation inside a tick fails the run; the profiler
     counts a wide tick's kernel launches and their device time;
-15. print the kernels line and, last, the device line.
+15. multi-device (``speech_tpu_torch.parallel``) on a one-card NCCL process
+    group (world size 1: NCCL refuses two ranks on one card, so the
+    multi-rank paths are held by the CPU gloo tests): ``ShardedExtractor``
+    at the main config ('double', auto route: B2) on 128 x 15 s, bitwise
+    equal to ``compute_batch`` with one B2 launch a batch, and its B1 and
+    B3 routes (``fft_mode="pallas"``, 10 and 10.25 ms shifts) likewise;
+    ``extract`` on 64 ragged utterances of 1-15 s with "pow2" and "fine"
+    buckets, and ``extract_iter`` over 8 batches of 32 ragged utterances,
+    each row within TOL_INT8 of that utterance alone on the plain digit
+    route (``fft_mode="matmul"``, no kernel); ``extract_iter`` double
+    buffered and not, with the device's idle share from ``torch.profiler``
+    and its dispatch under ``set_sync_debug_mode("error")``;
+    ``accumulate_stats_sharded``; the halo paths on one 10-minute signal;
+    ``sharded_pitch_feats`` on ``bench.py``'s 32 x 10 s tones;
+16. the learnable frontends (``speech_tpu_torch.nn``) at ``bench.py``'s
+    widths on 32 x 10 s: ``STFTFrontend`` of the main config against the
+    computer's plain 'highest' path, and the ms of one forward + backward
+    + SGD step; ``GaborFrontend``-40 and ``SincFrontend``-40 forward and
+    forward + backward; ``PCEN`` on the linear fbank; then the trained
+    frontend's ``export_computer`` at 'double', which launches B2 once,
+    equals bit for bit the export of a fresh frontend holding the same
+    parameters, and leaves the original computer's features unchanged;
+17. print the kernels line and, last, the device line.
+
+Every launch counter is set to 0 just before each driven path (phases 5,
+15 and 16) and read just after; the kernels line's launches are their
+sums.
 
 B2 and B4 also run on banks wider than one filter group (phases 3-4):
 B2 at 1,489 and 2,978 filters, both tiers, on 16 x 15 s.
@@ -75,6 +101,7 @@ import contextlib
 import glob
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -131,6 +158,7 @@ COMPUTE_PATH = ("stft_feats_rows", "stft_feats_frames", "stft_feats_int8")
 STREAM_CHUNK, STREAM_SESSIONS, STREAM_DEPTH, STREAM_TICKS = 1600, 16, 64, 50
 TOL_PIPE = 1e-9  # the float64 pipeline vs the batch ops (sums re-associated)
 PITCH_LONG_SECONDS = 60
+HALO_SECONDS = 600  # phase 15's one long signal
 
 
 def fail(msg):
@@ -196,6 +224,24 @@ def wall_ms(fn, reps=3):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def driven(counted, fn):
+    """``fn()`` with the kernels' launch counters set to 0 just before and
+    read just after; adds its launches to ``counted`` and returns
+    (result, its launches)."""
+    import torch
+
+    from speech_tpu_torch.ops import stft_kernels as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = K.launch_counts()
+    for name, count in got.items():
+        counted[name] = counted.get(name, 0) + count
+    return out, got
 
 
 def kernel_split(fn, top=6):
@@ -875,7 +921,13 @@ def main():
     # 14. streaming
     streaming_phase(dev, here, speech)
 
-    # 15. the kernels line, the card, the device line
+    # 15. multi-device, on a one-card NCCL group; 16. the frontends
+    for name, count in multidevice_phase(dev, smi, host).items():
+        launches[name] = launches.get(name, 0) + count
+    for name, count in frontend_phase(dev, smi).items():
+        launches[name] = launches.get(name, 0) + count
+
+    # 17. the kernels line, the card, the device line
     kernels = []
     for name, e in entries.items():
         bound, bound_by = bound_ms(e)
@@ -1079,6 +1131,257 @@ def streaming_phase(dev, here, speech):
     check(err <= TOL_PIPE, f"pipeline disagrees with the batch ops: {err}")
     _, pipe32 = pipeline("float32")
     report("pipeline float32", pipe32, sigs)
+
+
+def multidevice_phase(dev, smi, host):
+    """Phase 15: speech_tpu_torch.parallel on a world-size-1 NCCL group.
+    Returns the launches of the driven paths, by kernel."""
+    import torch
+    import torch.distributed as dist
+
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.compute import SIFrameComputer, STFTFrameComputer
+    from speech_tpu_torch.ops import framing as F
+    from speech_tpu_torch.ops import pitch
+    from speech_tpu_torch.parallel import multihost
+
+    counted = {}
+
+    def computer(**kw):
+        return STFTFrameComputer(dict(BANK), device=dev, **{**MAIN, **kw})
+
+    tmp = tempfile.mkdtemp()
+    multihost.initialize(store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                         num_processes=1, process_id=0, backend="nccl")
+    try:
+        mesh = par.make_mesh(("data",))
+        check(par.mesh.axis_size(mesh, "data") == 1, "mesh size")
+        n = SECONDS * RATE
+        sigs = torch.tensor(host, device=dev)
+        full = np.full(BATCH, n)
+        audio_s = BATCH * SECONDS
+        # the extractor on each kernel route, at the main path's 128 x 15 s
+        routes = [("double (auto)", dict(precision="double"), "stft_feats_int8"),
+                  ("pallas highest", dict(fft_mode="pallas"), "stft_feats_rows"),
+                  ("pallas highest 10.25 ms", dict(fft_mode="pallas", frame_shift_ms=10.25),
+                   "stft_feats_frames")]
+        for label, kw, kernel in routes:
+            comp = computer(**kw)
+            comp.params
+            ex = par.ShardedExtractor(comp, mesh)
+            (feats, counts), got = driven(counted, lambda: ex.extract_batch(sigs, full))
+            check(got[kernel] == 1, f"extractor {label}: {kernel} launched {got[kernel]} times")
+            want, want_n = comp.compute_batch(sigs, full)
+            check(torch.equal(feats.full_tensor(), want) and torch.equal(counts.full_tensor(), want_n),
+                  f"extractor {label} differs from compute_batch")
+            ms = cuda_ms(lambda: ex.extract_batch(sigs, full))
+            print(f"ShardedExtractor {label} {BATCH} x {SECONDS} s: bitwise equal to compute_batch, "
+                  f"{kernel} x{got[kernel]}; {ms:.3f} ms median, {audio_s / (ms / 1e3):.0f} "
+                  f"audio-s/s [{smi}]", flush=True)
+            if label == "double (auto)":
+                main_ex, main_feats, main_counts = ex, feats, counts
+            del feats, counts, want
+        # statistics over the extractor's features
+        st = par.accumulate_stats_sharded(main_feats, main_counts, mesh)
+        want = par.accumulate_stats(main_feats.full_tensor(), main_counts.full_tensor())
+        check(torch.equal(st, want), "accumulate_stats_sharded differs from accumulate_stats")
+        print(f"accumulate_stats_sharded on {tuple(main_feats.shape)}: equal to accumulate_stats, "
+              f"frames {int(st[0, -1])}", flush=True)
+        del main_feats, main_counts, sigs
+        torch.cuda.empty_cache()
+
+        # ragged utterances, both buckets, each row against its own batch
+        rng = np.random.RandomState(15)
+        utts = [(rng.randn(rng.randint(RATE, n + 1)) * 0.1).astype(np.float32) for _ in range(64)]
+        comp = main_ex._computer
+        # each utterance alone on the plain digit route ('double' at
+        # fft_mode="matmul" runs no kernel), within the digit tolerance
+        ref = computer(precision="double", fft_mode="matmul")
+        check(ref._use_kernel(dev) is None, "the reference computer takes a kernel route")
+        own, got = driven({}, lambda: [ref.compute_batch(u[None], [u.size])[0][0].cpu().numpy()
+                                        for u in utts])
+        check(not any(got.values()), f"the plain reference launched {got}")
+
+        def row_err(outs, first=0):
+            """Max abs of extracted rows against utterances ``first, ...``."""
+            us = range(first, first + len(outs))
+            check(all(o.shape == own[i].shape for o, i in zip(outs, us)), "frame counts")
+            return max(np.abs(o - own[i]).max() for o, i in zip(outs, us))
+
+        for bucket in ("pow2", "fine"):
+            ex = par.ShardedExtractor(comp, mesh, bucket=bucket)
+            outs, got = driven(counted, lambda: ex.extract(utts))
+            check(got["stft_feats_int8"] == 1, f"extract ({bucket}): B2 launched {got}")
+            err = row_err(outs)
+            ms = wall_ms(lambda: ex.extract(utts))
+            audio = sum(u.size for u in utts) / RATE
+            print(f"extract ({bucket}) 64 ragged utterances of 1-{SECONDS} s ({audio:.0f} s of "
+                  f"audio, padded to {ex.bucket_len(max(u.size for u in utts))}): max abs vs "
+                  f"own plain-route compute_batch {err:.3e} (tol {TOL_INT8:g}); {ms:.3f} ms host to host, "
+                  f"{audio / (ms / 1e3):.0f} audio-s/s [{smi}]", flush=True)
+            check(err <= TOL_INT8, f"extract ({bucket}) vs the plain route: {err}")
+
+        # extract_iter: 8 batches of 32 ragged utterances
+        firsts = [(8 * i) % 32 for i in range(8)]
+        batches = [utts[f: f + 32] for f in firsts]
+        ex = par.ShardedExtractor(comp, mesh)
+        outs, got = driven(counted, lambda: list(ex.extract_iter(iter(batches))))
+        check(len(outs) == 8 and got["stft_feats_int8"] == 8,
+              f"extract_iter: {len(outs)} batches, launches {got}")
+        iter_err = max(row_err(out, f) for f, out in zip(firsts, outs))
+        check(iter_err <= TOL_INT8, f"extract_iter vs the plain route: {iter_err}")
+        ex._collect(*ex._dispatch(batches[0]))
+        torch.cuda.synchronize()
+        with no_sync():
+            pending = ex._dispatch(batches[1])
+        ex._collect(*pending)
+        overlapped = wall_ms(lambda: list(ex.extract_iter(iter(batches)))) / 8
+        serial = wall_ms(lambda: [ex.extract(b) for b in batches]) / 8
+        n_k, busy, top = kernel_split(lambda: list(ex.extract_iter(iter(batches))))
+        audio = sum(u.size for b in batches for u in b) / RATE / 8
+        print(f"extract_iter 8 batches of 32 ragged utterances ({audio:.0f} s of audio a batch): "
+              f"max abs vs the plain route {iter_err:.3e} (tol {TOL_INT8:g}); "
+              f"{overlapped:.3f} ms a batch double-buffered, {serial:.3f} ms one at a time; "
+              f"{n_k} launches, device busy {busy / 8:.3f} ms a batch, idle "
+              f"{100 * (1 - busy / (8 * overlapped)):.1f}%; dispatch queued no host sync; "
+              f"top kernels {top} [{smi}]", flush=True)
+
+        # the halo paths on one 10-minute signal
+        long_n = HALO_SECONDS * RATE
+        long = torch.tensor((rng.randn(long_n) * 0.1).astype(np.float32), device=dev)
+        plain = computer()
+        fl, fs = plain.frame_length, plain.frame_shift
+        frames = par.halo_frame_signal(long, mesh, "data", fl, fs, plain._pad_left).full_tensor()
+        want = F.frame_padded(F.pad_signal_full(long, fl, plain._pad_left), long_n // fs, fl, fs)
+        check(torch.equal(frames, want), "halo_frame_signal differs from frame_padded")
+        del frames, want
+        got = par.sharded_stft_feats(plain, long, mesh, "data").full_tensor()
+        want = torch.tensor(plain.compute_full(long.cpu().numpy()), device=dev)
+        err = (got - want).abs().max().item()
+        ms = cuda_ms(lambda: par.sharded_stft_feats(plain, long, mesh, "data"), reps=3)
+        print(f"halo_frame_signal {HALO_SECONDS} s: bitwise equal to frame_padded; sharded_stft_feats "
+              f"vs compute_full: max abs {err:.3e} (tol {TOL_FLOAT:g}), {ms:.3f} ms [{smi}]",
+              flush=True)
+        check(got.shape == want.shape and err <= TOL_FLOAT, f"sharded_stft_feats: {err}")
+        del got, want
+        si = SIFrameComputer(dict(SI_BANKS["gammatone"]), frame_shift_ms=10, include_energy=True,
+                             dtype="float32", device=dev)
+        got = par.sharded_si_feats(si, long, mesh, "data").full_tensor()
+        want = torch.tensor(si.compute_full(long.cpu().numpy()), device=dev)
+        err = (got[: want.shape[0]] - want).abs().max().item()
+        ms = cuda_ms(lambda: par.sharded_si_feats(si, long, mesh, "data"), reps=3)
+        print(f"sharded_si_feats gammatone-40 {HALO_SECONDS} s vs compute_full: max abs {err:.3e} "
+              f"(tol {TOL_SI_FLOAT:g}), {ms:.3f} ms [{smi}]", flush=True)
+        check(err <= TOL_SI_FLOAT, f"sharded_si_feats: {err}")
+        del got, want, long
+        torch.cuda.empty_cache()
+
+        # pitch on bench.py's tones
+        p_rng = np.random.RandomState(0)
+        t = np.arange(PITCH_SECONDS * RATE) / RATE
+        tones = torch.tensor(np.stack(
+            [np.sin(2 * np.pi * (100.0 + 9.0 * b) * t) + 0.05 * p_rng.randn(t.size)
+             for b in range(PITCH_BATCH)]).astype(np.float32), device=dev)
+        lens = torch.full((PITCH_BATCH,), t.size, device=dev)
+        got, got_valid = par.sharded_pitch_feats(tones, RATE, lens, mesh)
+        want, want_valid = pitch.pitch_feats(tones, RATE, lengths=lens, return_valid=True)
+        check(torch.equal(got.full_tensor(), want) and torch.equal(got_valid.full_tensor(), want_valid),
+              "sharded_pitch_feats differs from pitch_feats")
+        ms = cuda_ms(lambda: par.sharded_pitch_feats(tones, RATE, lens, mesh), reps=3)
+        print(f"sharded_pitch_feats {PITCH_BATCH} x {PITCH_SECONDS} s: bitwise equal to "
+              f"pitch_feats, valid counts equal; {ms:.3f} ms [{smi}]", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counted
+
+
+def frontend_phase(dev, smi):
+    """Phase 16: the learnable frontends at bench.py's widths, 32 x 10 s.
+    Returns the launches of the driven path (the exported computer)."""
+    import torch
+
+    from speech_tpu_torch import nn
+    from speech_tpu_torch.compute import STFTFrameComputer
+    from speech_tpu_torch.filters import GaborFilterBank
+
+    def computer(**kw):
+        return STFTFrameComputer(dict(BANK), device=dev, **{**MAIN, **kw})
+
+    n = SI_SECONDS * RATE
+    rng = np.random.RandomState(16)
+    x = torch.tensor((rng.randn(SI_BATCH, n) * 0.1).astype(np.float32), device=dev)
+    full = np.full(SI_BATCH, n)
+
+    def step_ms(module, loss_of, optimizer=None):
+        def step():
+            if optimizer is not None:
+                optimizer.zero_grad()
+            loss_of(module).backward()
+            if optimizer is not None:
+                optimizer.step()
+        return cuda_ms(step, reps=3)
+
+    original = computer(precision="double")
+    original.params
+    frontend = nn.STFTFrontend(original)
+    with torch.no_grad():
+        fwd = frontend(x)
+    want, _ = computer().compute_batch(x, full)
+    err = (fwd - want).abs().max().item()
+    check(err <= TOL_FLOAT, f"STFTFrontend vs the plain 'highest' path: {err}")
+    fwd_ms = cuda_ms(lambda: frontend(x))
+    sgd = torch.optim.SGD(frontend.parameters(), lr=0.1)
+    before, _ = original.compute_batch(x, full)
+    sgd_ms = step_ms(frontend, lambda m: -m(x).mean(), sgd)  # the timed steps train it
+    print(f"STFTFrontend (main config) {SI_BATCH} x {SI_SECONDS} s: vs the computer's plain "
+          f"'highest' path max abs {err:.3e} (tol {TOL_FLOAT:g}); forward {fwd_ms:.3f} ms, "
+          f"forward + backward + SGD step {sgd_ms:.3f} ms [{smi}]", flush=True)
+
+    bank = GaborFilterBank("mel", num_filts=40, sampling_rate=RATE)
+    for label, module in (("GaborFrontend-40", nn.GaborFrontend(bank, device=dev)),
+                          ("SincFrontend-40", nn.SincFrontend(40, RATE, device=dev))):
+        with torch.no_grad():
+            out = module(x)
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite features")
+        f_ms = cuda_ms(lambda: module(x), reps=3)
+        fb_ms = step_ms(module, lambda m: m(x).mean())
+        print(f"{label} {SI_BATCH} x {SI_SECONDS} s ({module.filter_size} taps): output "
+              f"{tuple(out.shape)}; forward {f_ms:.3f} ms, forward + backward {fb_ms:.3f} ms "
+              f"[{smi}]", flush=True)
+        del out
+    linear, _ = computer(use_log=False).compute_batch(x, full)
+    pcen = nn.PCEN(linear.shape[-1], device=dev)
+    out = pcen(linear)
+    check(bool(torch.isfinite(out).all()), "PCEN: non-finite values")
+    pcen_ms = step_ms(pcen, lambda m: m(linear).mean())
+    print(f"PCEN on the linear fbank {tuple(linear.shape)}: forward + backward {pcen_ms:.3f} ms "
+          f"[{smi}]", flush=True)
+    del linear, out
+    torch.cuda.empty_cache()
+
+    # the trained frontend, exported at 'double'
+    counted = {}
+    (exported, _), _ = driven(counted, lambda: frontend.export_computer().compute_batch(x, full))
+    check(counted["stft_feats_int8"] == 1, f"export_computer: launches {counted}")
+    fresh = nn.STFTFrontend(computer(precision="double"))
+    nn.params_from_jax(fresh, {k: v.detach().cpu().numpy() for k, v in frontend.named_parameters()})
+    again, _ = fresh.export_computer().compute_batch(x, full)
+    after, _ = original.compute_batch(x, full)
+    with torch.no_grad():
+        trained = frontend(x)
+    moved = (exported - before).abs().max().item()
+    err = (exported - trained).abs().max().item()
+    print(f"export_computer after the 4 timed SGD steps, 'double': stft_feats_int8 x"
+          f"{counted['stft_feats_int8']}; vs the trained frontend max abs {err:.3e}, moved "
+          f"{moved:.3e} from the original; bitwise equal to a fresh export "
+          f"{torch.equal(exported, again)}; original unchanged {torch.equal(after, before)} [{smi}]",
+          flush=True)
+    check(torch.equal(exported, again), "export_computer differs from a fresh export")
+    check(torch.equal(after, before), "export_computer changed the original computer")
+    check(err <= TOL_FLOAT and moved > 100 * TOL_FLOAT,
+          f"export_computer does not follow the trained parameters ({err}, {moved})")
+    return counted
 
 
 if __name__ == "__main__":

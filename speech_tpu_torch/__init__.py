@@ -11,5 +11,6 @@ package, so each counterpart is easy to find.  Entry points run on
 from . import alias, config, scales, utils  # noqa: F401
 from . import filters, compute  # noqa: F401
 from . import ops  # noqa: F401
+from . import nn, parallel  # noqa: F401
 
 __version__ = "0.1.0"

@@ -312,6 +312,9 @@ def _pcen_compress(features, m, alpha, delta, power, eps):
     """The PCEN gain/compression stage given the smoothed energies ``m``."""
 
     def param(v):
+        # a tensor (a learnable frontend's leaf) keeps its autograd graph
+        if isinstance(v, torch.Tensor):
+            return v.to(features.dtype)
         return host_constant(np.asarray(v), features.dtype, features.device)
 
     alpha, delta, power = param(alpha), param(delta), param(power)
@@ -356,7 +359,8 @@ def pcen(
     *linear* (magnitude or power) features.
 
     ``smooth``/``alpha``/``delta``/``power`` may be scalars or per-channel
-    arrays broadcastable against the feature (last) axis.  ``init_state``
+    arrays broadcastable against the feature (last) axis; as tensors they
+    are differentiable (:class:`speech_tpu_torch.nn.PCEN`).  ``init_state``
     is the smoother carry ``M_{-1}`` (None starts at the first frame's
     energy).  With ``return_state`` the final smoother state is returned
     too, so chunks stream exactly.  ``lengths`` (per-row valid frame
@@ -365,7 +369,10 @@ def pcen(
     """
     features = torch.as_tensor(features)
     time_axis = time_axis % features.ndim
-    smooth = torch.as_tensor(np.asarray(smooth), dtype=features.dtype).to(features.device)
+    if isinstance(smooth, torch.Tensor):
+        smooth = smooth.to(features.dtype)
+    else:
+        smooth = torch.as_tensor(np.asarray(smooth), dtype=features.dtype).to(features.device)
     decay = 1.0 - smooth
     valid = None
     if lengths is not None:

@@ -778,3 +778,91 @@ def test_stream_ticks_queue_no_sync(kind):
             assert torch.allclose(got[:, 0], want[:, 0], rtol=1e-3, atol=0)
         else:
             assert (got - want).abs().max().item() <= TOL_FLOAT
+
+
+# --- multi-device (world size 1 on NCCL) and the exported frontend ----------
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:Synchronization debug mode is a prototype")
+def test_sharded_extractor_nccl_world1_runs_b2(tmp_path):
+    """ShardedExtractor on a one-card NCCL mesh at 'double': bitwise the
+    computer's compute_batch on the same rows, one B2 launch a batch, and
+    its dispatch queues no host synchronisation."""
+    import torch.distributed as dist
+
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.parallel import multihost
+
+    dev = _device()
+    multihost.initialize(store=dist.FileStore(str(tmp_path / "store"), 1),
+                         num_processes=1, process_id=0, backend="nccl")
+    try:
+        mesh = par.make_mesh(("data",))
+        comp = STFTFrameComputer(dict(BANK), frame_length_ms=25, frame_shift_ms=10,
+                                 include_energy=True, precision="double", device=dev)
+        ex = par.ShardedExtractor(comp, mesh)
+        rng = np.random.RandomState(91)
+        x = rng.randn(8, 32000).astype(np.float32)
+        full = np.full(8, 32000)
+        K.reset_launch_counts()
+        feats, counts = ex.extract_batch(x, full)
+        assert K.launch_counts()["stft_feats_int8"] == 1
+        want, want_n = comp.compute_batch(x, full)
+        assert torch.equal(feats.full_tensor(), want)
+        assert torch.equal(counts.full_tensor(), want_n)
+        sigs = [rng.randn(n).astype(np.float32) for n in (16000, 9000, 31000, 400)]
+        ex._collect(*ex._dispatch(sigs))  # warm the packed layouts
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = ex._dispatch(sigs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert K.launch_counts()["stft_feats_int8"] == 1
+        for sig, got in zip(sigs, ex._collect(*pending)):
+            w, n = comp.compute_batch(sig[None], [sig.size])
+            assert np.array_equal(got, w[0, : int(n[0])].cpu().numpy())
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_export_computer_double_runs_b2_with_trained_params():
+    """After a training step of the frontend on the card, its exported 'double'
+    computer launches B2 once, on the trained parameters: its features
+    follow the trained frontend (not a packed layout of the old weights),
+    equal bit for bit those of an export from a fresh frontend with the
+    same parameters, and leave the original computer's unchanged."""
+    from speech_tpu_torch.nn import STFTFrontend, params_from_jax
+
+    dev = _device()
+
+    def computer():
+        return STFTFrameComputer(dict(BANK), frame_length_ms=25, frame_shift_ms=10,
+                                 include_energy=True, precision="double", device=dev)
+
+    original = computer()
+    x = torch.tensor(np.random.RandomState(92).randn(4, 16000).astype(np.float32), device=dev)
+    lens = np.full(4, 16000)
+    before, _ = original.compute_batch(x, lens)  # packs the old weights
+    frontend = STFTFrontend(original)
+    # one Adam step moves every parameter by about lr: raising the
+    # features keeps them off the log floor
+    opt = torch.optim.Adam(frontend.parameters(), lr=0.05)
+    (-frontend(x)).mean().backward()
+    opt.step()
+    K.reset_launch_counts()
+    got, _ = frontend.export_computer().compute_batch(x, lens)
+    assert K.launch_counts()["stft_feats_int8"] == 1
+    with torch.no_grad():
+        trained = frontend(x)
+    assert (got - trained).abs().max().item() <= TOL_FLOAT
+    assert (got - before).abs().max().item() > 100 * TOL_FLOAT
+    fresh = STFTFrontend(computer())
+    params_from_jax(fresh, {k: v.detach().cpu().numpy() for k, v in frontend.named_parameters()})
+    again, _ = fresh.export_computer().compute_batch(x, lens)
+    assert torch.equal(got, again)
+    after, _ = original.compute_batch(x, lens)
+    assert torch.equal(after, before)

@@ -1,0 +1,397 @@
+"""One rank of the multi-process tests of ``speech_tpu_torch.parallel``.
+
+Not collected by pytest (no ``test_`` prefix).  ``tests/test_torch_parallel.py``
+and ``tests/test_torch_nn.py`` start one of these per rank (world sizes 2
+and 4, one launch each) on the CPU: a gloo process group meeting at a
+``FileStore``.  Every rank runs every multi-rank case of the port
+(:func:`run_cases`, or :func:`train_step`) on the same deterministic inputs (:func:`inputs`) and
+rank 0 writes the gathered results to one ``.npz``; the tests compare them
+with the JAX package on its CPU mesh cut to the same number of devices.
+The world-size-1 run calls :func:`run_cases` in the test process itself.
+
+This module imports torch, numpy and ``speech_tpu_torch`` only.
+
+Usage: python torch_dist_worker.py <rank> <world> <store file> <out .npz> <cases> [<device>]
+
+where ``<cases>`` is ``parallel`` (:func:`run_cases`), ``train`` (the
+data x filter sharded training step of the STFT frontend,
+:func:`train_step`; world sizes 2 and 4) or ``bench`` (:func:`extract_bench`,
+GPUs only), and ``<device>`` is ``cpu`` (gloo; the default) or ``cuda``
+(NCCL, one card a rank: ``tools/torch_multichip.py`` runs the same cases
+on four cards).
+"""
+
+import importlib
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+STFT_CFG = ({"name": "fbank", "num_filts": 10, "sampling_rate": 8000},)
+STFT_KW = dict(frame_length_ms=25, frame_shift_ms=10, dtype="float64")
+SI_BANK = {"name": "gammatone", "scaling_function": "mel", "num_filts": 6,
+           "sampling_rate": 8000}
+SI_VARIANTS = [(style, energy) for style in ("causal", "centered") for energy in (False, True)]
+PITCH_RATE, PITCH_BATCH = 8000, 4
+TRAIN_LR = 1e-3
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _module(package, name):
+    return importlib.import_module(f"{package.__name__}.{name}")
+
+
+def _device(package, device) -> dict:
+    return {"device": device} if package.__name__ == "speech_tpu_torch" else {}
+
+
+def stft_computer(package, device="cpu", **kw):
+    """The fbank-10 computer at 8 kHz (float64) of either package (the
+    port's on ``device``)."""
+    return _module(package, "compute").STFTFrameComputer(
+        *STFT_CFG, **{**STFT_KW, **kw}, **_device(package, device)
+    )
+
+
+def si_computer(package, style, energy, device="cpu"):
+    """The gammatone-6 SI computer at 8 kHz (float64) of either package."""
+    return _module(package, "compute").SIFrameComputer(
+        dict(SI_BANK), frame_style=style, include_energy=energy, dtype="float64",
+        **_device(package, device)
+    )
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def post_chain(package):
+    """Deltas, sliding CMVN and stacking, as host post-processors."""
+    post = _module(package, "post")
+    return [
+        post.Deltas(1, target_axis=-1),
+        post.SlidingCMVN(window=40, center=False, min_window=10),
+        post.Stack(3, pad_mode="edge"),
+    ]
+
+
+def si_span(max_support: int, shift: int) -> int:
+    """The least per-rank span (a multiple of the shift) that covers the
+    SI halo, plus two shifts."""
+    halo = max_support - 1 + 2 * shift
+    return (-(-halo // shift) + 2) * shift
+
+
+def inputs() -> dict:
+    """The inputs of every case (numpy, seeded), the same at every world
+    size up to 4: signal spans and batches divide by 4."""
+    import speech_tpu_torch as stt
+
+    rng = np.random.RandomState(20261017)
+    shift = 80  # the frame shift of both computers
+    support = si_computer(stt, "causal", False).max_support
+    out = {}
+    out["halo_signal"] = rng.randn(4 * shift * 8)
+    out["stft_signal"] = rng.randn(4 * shift * 16)
+    out["si_signal"] = rng.randn(4 * si_span(support, shift))
+    out["ragged"] = [rng.randn(rng.randint(800, 4000)) for _ in range(11)]
+    out["full_batch"] = rng.randn(8, 4096)
+    out["int16"] = [(rng.randn(k) * 1000).astype(np.int16) for k in (900, 2048, 3001)]
+    out["fine"] = [rng.randn(k) for k in (1100, 2500, 3100)]
+    out["iter"] = [[rng.randn(rng.randint(800, 2000)) for _ in range(3)] for _ in range(3)]
+    out["stats_feats"] = rng.randn(8, 20, 13)
+    out["stats_counts"] = rng.randint(1, 21, size=8)
+    t = np.arange(PITCH_RATE // 2) / PITCH_RATE
+    pitch = np.stack(
+        [np.sin(2 * np.pi * (110.0 + 25.0 * b) * t) + 0.05 * rng.randn(t.size)
+         for b in range(PITCH_BATCH)]
+    )
+    pitch_len = np.full(PITCH_BATCH, t.size, np.int32)
+    pitch_len[-1] = t.size // 2  # one padded row exercises masking
+    pitch[-1, pitch_len[-1]:] = 0.0
+    out["pitch"], out["pitch_lengths"] = pitch, pitch_len
+    corpus = rng.randn(8, 2048)
+    corpus_len = rng.randint(1024, 2049, size=8).astype(np.int32)
+    for i in range(8):
+        corpus[i, corpus_len[i]:] = 0.0
+    out["corpus"], out["corpus_lengths"] = corpus, corpus_len
+    out["post"] = [rng.randn(rng.randint(1100, 2000)) for _ in range(8)]
+    out["si_ragged"] = [rng.randn(rng.randint(1100, 2000)) for _ in range(3)]
+    out["train"] = rng.randn(4, 1600)
+    return out
+
+
+def _raises(fn, exc=ValueError, match=""):
+    try:
+        fn()
+    except exc as e:
+        return int(match in str(e))
+    return 0
+
+
+def _ragged(prefix: str, feats_list) -> dict:
+    out = {f"{prefix}_n": np.array([f.shape[0] for f in feats_list])}
+    out[prefix] = np.concatenate(feats_list)
+    return out
+
+
+def train_step(x: np.ndarray, device: str = "cpu") -> dict:
+    """One SGD step of the STFT frontend (loss: mean squared features) on a
+    ``(data, filt)`` mesh: the batch rows over ``data``, the filter
+    columns of ``weights`` over ``filt``, the window replicated.  Each rank
+    differentiates its part of the loss; the window's gradient sums over
+    every rank and the weights' over the data axis.  Returns the loss and
+    the updated parameters, gathered whole."""
+    import torch
+    import torch.distributed as dist
+
+    import speech_tpu_torch as stt
+    from speech_tpu_torch import parallel as par
+
+    mesh = par.make_mesh(("data", "filt"), shape=(-1, 2), devices=device)
+    frontend = stt.nn.STFTFrontend(stft_computer(stt, device), dtype=torch.float64)
+    n_filt = frontend.weights.shape[1]
+    fpos, per = mesh.get_local_rank("filt"), frontend.weights.shape[1] // 2
+    cols = slice(fpos * per, (fpos + 1) * per)
+    with torch.no_grad():  # this rank's block of the filter columns
+        frontend.weights = torch.nn.Parameter(frontend.weights[:, cols].clone())
+    rows = par.mesh.local_tensor(x, mesh, "data")
+    feats = frontend(rows)
+    part = (feats ** 2).sum() / (x.shape[0] * feats.shape[1] * n_filt)
+    part.backward()
+    loss = part.detach().clone()
+    dist.all_reduce(loss)
+    dist.all_reduce(frontend.window.grad)
+    dist.all_reduce(frontend.weights.grad, group=mesh.get_group("data"))
+    torch.optim.SGD(frontend.parameters(), lr=TRAIN_LR).step()
+    blocks = [torch.empty_like(frontend.weights) for _ in range(2)]
+    dist.all_gather(blocks, frontend.weights.detach().contiguous(), group=mesh.get_group("filt"))
+    return {
+        "train_loss": _np(loss),
+        "train_window": _np(frontend.window),
+        "train_weights": _np(torch.cat(blocks, dim=1)),
+    }
+
+
+def run_cases(world: int, device: str = "cpu") -> dict:
+    """Every multi-rank case of the port at world size ``world`` on
+    ``device`` (the process group must be running); returns numpy results,
+    every global result gathered whole."""
+    import torch
+
+    import speech_tpu_torch as stt
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.ops import framing as F
+    from speech_tpu_torch.parallel import multihost
+
+    x = inputs()
+    r = {}
+    mesh = par.make_mesh(("data",), devices=device)
+    r["mesh_data"] = np.array(par.mesh.axis_size(mesh, "data"))
+    r["mesh_error"] = np.array(
+        _raises(lambda: par.make_mesh(("data",), shape=(3,), devices=device), match="!= ")
+    )
+    if world % 2 == 0:
+        m2 = par.make_mesh(("data", "filt"), shape=(-1, 2), devices=device)
+        r["mesh_2d"] = np.array([par.mesh.axis_size(m2, a) for a in ("data", "filt")])
+        r["placements"] = np.array(
+            [repr(p) for p in par.named_sharding(m2, None, "filt")]
+            + [repr(p) for p in par.named_sharding(m2, "data")]
+        )
+
+    comp = stft_computer(stt, device)
+    fl, fs = comp.frame_length, comp.frame_shift
+    for style in ("causal", "centered"):
+        pad_left = F.left_pad_width(style, fl, fs, False)
+        frames = par.halo_frame_signal(x["halo_signal"], mesh, "data", fl, fs, pad_left)
+        r[f"halo_{style}"] = _np(frames.full_tensor())
+    r["halo_error"] = np.array(
+        _raises(lambda: par.halo_frame_signal(np.zeros(world * 100), mesh, "data", fl, fs, 0),
+                match="frame_length")
+    )
+    r["stft"] = _np(par.sharded_stft_feats(comp, x["stft_signal"], mesh, "data").full_tensor())
+    for style, energy in SI_VARIANTS:
+        sc = si_computer(stt, style, energy, device)
+        r[f"si_{style}_{int(energy)}"] = (
+            _np(par.sharded_si_feats(sc, x["si_signal"], mesh, "data").full_tensor())
+        )
+    r["si_error"] = np.array(
+        _raises(lambda: par.sharded_si_feats(sc, np.zeros(world * 8), mesh, "data"),
+                match="halo")
+    )
+
+    ex = par.ShardedExtractor(comp, mesh)
+    r.update(_ragged("ragged", ex.extract(x["ragged"])))
+    lengths = np.full(8, 4096)
+    for name, lens in (("full", lengths), ("traced", torch.tensor(lengths))):
+        feats, counts = ex.extract_batch(x["full_batch"], lens)
+        r[f"{name}_feats"] = _np(feats.full_tensor())
+        r[f"{name}_counts"] = _np(counts.full_tensor())
+    r["batch_error"] = np.array(
+        _raises(lambda: ex.extract_batch(x["full_batch"][:1], np.full(1, 4096)), match="multiple")
+        if world > 1 else 1
+    )
+    got_i = ex.extract(x["int16"])
+    got_f = ex.extract([s.astype(np.float64) for s in x["int16"]])
+    r["int16_equal"] = np.array(all(np.array_equal(a, b) for a, b in zip(got_i, got_f)))
+    r.update(_ragged("int16", got_i))
+    mixed = ex.extract([x["int16"][0], x["int16"][1].astype(np.float64)])
+    r.update(_ragged("mixed", mixed))
+    r.update(_ragged("fine", par.ShardedExtractor(comp, mesh, bucket="fine").extract(x["fine"])))
+    for i, out in enumerate(ex.extract_iter(iter(x["iter"]))):
+        r.update(_ragged(f"iter{i}", out))
+    r.update(_ragged("post", par.ShardedExtractor(
+        comp, mesh, postprocessors=post_chain(stt)).extract(x["post"])))
+    r.update(_ragged("si_extract", par.ShardedExtractor(
+        si_computer(stt, "centered", True, device), mesh).extract(x["si_ragged"])))
+
+    r["stats"] = _np(par.accumulate_stats_sharded(x["stats_feats"], x["stats_counts"], mesh))
+    r["stats_onto"] = _np(par.accumulate_stats_sharded(
+        x["stats_feats"], x["stats_counts"], mesh, stats=r["stats"]))
+
+    pitch, valid = par.sharded_pitch_feats(x["pitch"], PITCH_RATE, x["pitch_lengths"], mesh)
+    r["pitch"], r["pitch_valid"] = _np(pitch.full_tensor()), _np(valid.full_tensor())
+    if world > 1:
+        r["pitch_error"] = np.array(_raises(
+            lambda: par.sharded_pitch_feats(x["pitch"][: world - 1], PITCH_RATE,
+                                            x["pitch_lengths"][: world - 1], mesh),
+            match="divide"))
+
+    # the multi-process data path: each rank feeds only its own rows
+    sl = multihost.process_slice(len(x["corpus"]))
+    r["slice"] = np.array([sl.start, sl.stop])
+    gsig = multihost.global_batch_from_host_local(x["corpus"][sl], mesh)
+    glen = multihost.global_batch_from_host_local(x["corpus_lengths"][sl], mesh)
+    r["global_shape"] = np.array(gsig.shape)
+    feats, counts = ex.extract_batch(gsig, glen)
+    r["mh_feats"] = _np(feats.full_tensor())
+    r["mh_counts"] = _np(counts.full_tensor())
+    r["mh_stats"] = _np(par.accumulate_stats_sharded(feats, counts, mesh))
+
+    return r
+
+
+def extract_bench(world: int, device: str = "cuda") -> dict:
+    """``ShardedExtractor`` at the main config of ``bench.py:117-124``
+    ('double': B2) on a 128 x 15 s global batch of float32 noise that every
+    rank holds whole: the ms of one batch (CUDA events after a barrier,
+    median of 5, the slowest rank), the B2 launches of one batch summed
+    over the ranks, and whether the gathered features equal the whole
+    batch's ``compute_batch`` on one card, bit for bit, on every rank."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.compute import STFTFrameComputer
+    from speech_tpu_torch.ops import stft_kernels as K
+
+    mesh = par.make_mesh(("data",), devices=device)
+    comp = STFTFrameComputer(
+        {"name": "fbank", "num_filts": 40, "sampling_rate": 16000}, frame_length_ms=25,
+        frame_shift_ms=10, include_energy=True, precision="double", device=device,
+    )
+    rng = np.random.RandomState(20261016)
+    sigs = torch.tensor((rng.randn(128, 15 * 16000) * 0.1).astype(np.float32), device=comp.device)
+    full = np.full(128, 15 * 16000)
+    ex = par.ShardedExtractor(comp, mesh)
+    ex.extract_batch(sigs, full)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    feats, counts = ex.extract_batch(sigs, full)
+    torch.cuda.synchronize()
+    launches = torch.tensor([K.launch_counts()["stft_feats_int8"]], device=comp.device)
+    times = []
+    for _ in range(5):
+        dist.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ex.extract_batch(sigs, full)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = torch.tensor([statistics.median(times)], device=comp.device)
+    want, want_n = comp.compute_batch(sigs, full)
+    equal = torch.tensor(
+        [int(torch.equal(feats.full_tensor(), want) and torch.equal(counts.full_tensor(), want_n))],
+        device=comp.device,
+    )
+    dist.all_reduce(ms, op=dist.ReduceOp.MAX)
+    dist.all_reduce(launches)
+    dist.all_reduce(equal, op=dist.ReduceOp.MIN)
+    return {"bench_ms": _np(ms), "bench_launches": _np(launches), "bench_equal": _np(equal)}
+
+
+def launch(world: int, out_dir, cases: str = "parallel", device: str = "cpu",
+           strict: bool = True):
+    """Start one process a rank of this script at world size ``world``
+    (``strict``: warnings are errors, as under pytest); returns
+    (processes, result path)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.dirname(HERE), HERE, env.get("PYTHONPATH", "")])
+    env["OMP_NUM_THREADS"] = "1"  # the ranks share the cores
+    out = os.path.join(out_dir, f"{cases}-{device}-world{world}.npz")
+    store = os.path.join(out_dir, f"store-{cases}-{device}-{world}")
+    worker = os.path.join(HERE, "torch_dist_worker.py")
+    warn = ["-W", "error"] if strict else []
+    procs = [
+        subprocess.Popen(
+            [sys.executable, *warn, worker, str(rank), str(world), store, out, cases, device],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for rank in range(world)
+    ]
+    return procs, out
+
+
+def wait(procs, out):
+    """Wait for a :func:`launch`; its results, or the failed rank's log."""
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=240)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {rank} failed:\n{log}"
+        assert f"[rank {rank}] OK" in log
+    with np.load(out) as data:
+        return {k: data[k] for k in data.files}
+
+
+CASES = {
+    "parallel": run_cases,
+    "train": lambda world, device: train_step(inputs()["train"], device),
+    "bench": extract_bench,
+}
+
+
+def main(rank: int, world: int, store_path: str, out_path: str, cases: str,
+         device: str) -> None:
+    import torch.distributed as dist
+
+    from speech_tpu_torch.parallel import multihost
+
+    multihost.initialize(
+        store=dist.FileStore(store_path, world),
+        num_processes=world,
+        process_id=rank,
+        backend="gloo" if device == "cpu" else "nccl",
+    )
+    try:
+        results = CASES[cases](world, device)
+        if rank == 0:
+            np.savez(out_path, **results)
+    finally:
+        dist.destroy_process_group()
+    print(f"[rank {rank}] OK", flush=True)
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
+         sys.argv[6] if len(sys.argv) > 6 else "cpu")
