@@ -85,11 +85,38 @@ Phases (each passes or the script exits non-zero):
     frontend's ``export_computer`` at 'double', which launches B2 once,
     equals bit for bit the export of a fresh frontend holding the same
     parameters, and leaves the original computer's features unchanged;
-17. print the kernels line and, last, the device line.
+17. the model families (``speech_tpu_torch.models``) at the JAX package's
+    default widths: ``KWSModel`` on the main config's ``STFTFrontend``
+    (channels 64, 64; 10 classes; 32 x 1 s), ``SpeakerModel`` (TDNN 128,
+    128, 128; embedding 192; 32 x 3 s) and ``CTCModel`` (model 128, 2
+    layers, 4 heads, FFN 512, vocabulary 28; 16 x 10 s): forward and
+    Adam ``make_train_step`` ms, the loss finite and lower after 4 steps,
+    one step traced (kernels, device busy of its wall), the card's float32
+    forward on 2 rows against the same parameters' float64 forward on the
+    CPU (features, logits, embeddings and log probabilities within
+    TOL_FLOAT; CTC's per-example loss within rtol TOL_FLOAT), and
+    ``make_train_step``'s gradients on those rows against float64's with
+    the card forward's ReLU pattern (within TOL_GRAD of each tensor's
+    largest; the same backward with TF32 allowed printed beside them); the CTC loss's recursion alone,
+    timed and traced; ``StreamingKWS`` with 16 sessions in a ``StreamPool``
+    (ticks under ``set_sync_debug_mode("error")``, the close rows against
+    the model on the whole signal within TOL_FLOAT); a ``TrainCheckpointer``
+    round trip, bitwise; the flagship preset at 'double' through B2;
+18. serving (``speech_tpu_torch.serve``): ``FeatureServer`` on the main
+    config at 'double' (auto: B2) with four client threads submitting 256
+    ragged utterances of 1-15 s, each result within TOL_INT8 of that
+    utterance alone on the plain digit route, one B2 launch per
+    micro-batch (counted over a third, untraced burst) and no failed
+    request; its throughput, the p50/p99 latency of a lone request; the
+    first two bursts traced, each with its device busy ms and idle share
+    of its own wall time (``torch.profiler``) and the dispatcher's host
+    calls timed; ``StreamServer`` with 16 threaded sessions of
+    ``StreamingSTFT`` against ``compute_full`` within TOL_FLOAT;
+19. print the kernels line and, last, the device line.
 
 Every launch counter is set to 0 just before each driven path (phases 5,
-15 and 16) and read just after; the kernels line's launches are their
-sums.
+15, 16, 17 and 18) and read just after; the kernels line's launches are
+their sums.
 
 B2 and B4 also run on banks wider than one filter group (phases 3-4):
 B2 at 1,489 and 2,978 filters, both tiers, on 16 x 15 s.
@@ -157,6 +184,9 @@ COMPUTE_PATH = ("stft_feats_rows", "stft_feats_frames", "stft_feats_int8")
 # one wide call; 50 ticks for the per-chunk times
 STREAM_CHUNK, STREAM_SESSIONS, STREAM_DEPTH, STREAM_TICKS = 1600, 16, 64, 50
 TOL_PIPE = 1e-9  # the float64 pipeline vs the batch ops (sums re-associated)
+# make_train_step's float32 gradients vs float64, relative to each tensor's
+# largest: the float tier's 1e-4 (TF32 keeps about three decimal digits)
+TOL_GRAD = 1e-4
 PITCH_LONG_SECONDS = 60
 HALO_SECONDS = 600  # phase 15's one long signal
 
@@ -244,23 +274,43 @@ def driven(counted, fn):
     return out, got
 
 
-def kernel_split(fn, top=6):
-    """``fn()`` under the profiler: its kernel launches, their summed
-    device ms, and the ``top`` kernel names by device time."""
+def traced(fn, top=6):
+    """``fn()`` under the profiler, timed on the host's clock up to the
+    card's last kernel: ``(result, its kernel launches, their summed device
+    ms, the wall ms, the ``top`` kernels and the ``top`` host events (CUDA
+    runtime calls of every thread included) by their ms)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        t0 = time.perf_counter()
+        out = fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return len(kernels), busy, [(n[:48], round(ms, 3)) for n, ms in names]
+        wall = (time.perf_counter() - t0) * 1e3
+    device, host = {}, {}
+    n_kernels = 0
+    for e in prof.events():
+        ms = e.time_range.elapsed_us() / 1e3
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_kernels += 1
+            device[e.name] = device.get(e.name, 0.0) + ms
+        else:
+            host[e.name] = host.get(e.name, 0.0) + ms
+    busy = sum(device.values())
+
+    def ranked(by_name):
+        names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+        return [(n[:48], round(ms, 3)) for n, ms in names]
+
+    return out, n_kernels, busy, wall, ranked(device), ranked(host)
+
+
+def kernel_split(fn, top=6):
+    """``fn()`` under the profiler: its kernel launches, their summed
+    device ms, and the ``top`` kernel names by device time."""
+    _, n_kernels, busy, _, top_kernels, _ = traced(fn, top)
+    return n_kernels, busy, top_kernels
 
 
 def tick_ms(stream, chunk):
@@ -927,7 +977,12 @@ def main():
     for name, count in frontend_phase(dev, smi).items():
         launches[name] = launches.get(name, 0) + count
 
-    # 17. the kernels line, the card, the device line
+    # 17. the model families; 18. serving
+    for phase in (models_phase, serving_phase):
+        for name, count in phase(dev, smi).items():
+            launches[name] = launches.get(name, 0) + count
+
+    # 19. the kernels line, the card, the device line
     kernels = []
     for name, e in entries.items():
         bound, bound_by = bound_ms(e)
@@ -1381,6 +1436,432 @@ def frontend_phase(dev, smi):
     check(torch.equal(after, before), "export_computer changed the original computer")
     check(err <= TOL_FLOAT and moved > 100 * TOL_FLOAT,
           f"export_computer does not follow the trained parameters ({err}, {moved})")
+    return counted
+
+
+class KeepGrads:
+    """An optimizer for ``make_train_step`` whose step only keeps a copy of
+    the gradients (``zero_grad`` then clears them as a real one's does)."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        self.grads = None
+
+    def step(self):
+        self.grads = [p.grad.detach().clone() for p in self.params]
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+
+def relative_grad_errs(model, got, want, top=3):
+    """The largest gradient difference, each tensor's relative to its
+    largest float64 gradient, and the ``top`` tensors by it."""
+    errs = {name: ((g.cpu().double() - w).abs().max() / w.abs().max()).item()
+            for (name, _), g, w in zip(model.named_parameters(), got, want)}
+    ranked = sorted(errs.items(), key=lambda kv: -kv[1])[:top]
+    return ranked[0][1], [(n, float(f"{e:.3e}")) for n, e in ranked]
+
+
+@contextlib.contextmanager
+def relu_pattern(masks, replay=False):
+    """``torch.relu`` that appends each call's ``z > 0`` to ``masks``, or
+    with ``replay`` applies the recorded ones in their order: ReLU's
+    derivative jumps at 0, so a pre-activation within rounding of 0 would
+    take different branches in float32 and float64 and move its column's
+    gradient by up to about 1e-3; the float64 twin replays the card's."""
+    import torch
+
+    relu, pattern = torch.relu, iter(list(masks))
+
+    def record(z):
+        masks.append((z > 0).cpu())
+        return relu(z)
+
+    def apply(z):
+        return z * next(pattern).to(device=z.device, dtype=z.dtype)
+
+    torch.relu = apply if replay else record
+    try:
+        yield
+    finally:
+        torch.relu = relu
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """PyTorch's TF32 settings for the block (cuDNN's default; matmuls at
+    'high'), whatever they were before."""
+    import torch
+
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
+def _tones(rng, batch, seconds, classes, noise=0.1):
+    """``batch`` rows of ``seconds`` at RATE: class ``c`` a tone at 200 +
+    300 c Hz plus noise; returns (float32 signals, labels)."""
+    t = np.arange(seconds * RATE) / RATE
+    labels = rng.randint(0, classes, size=batch)
+    x = np.stack([0.3 * np.sin(2 * np.pi * (200.0 + 300.0 * c) * t + rng.uniform(0, 6.3))
+                  + noise * rng.randn(t.size) for c in labels])
+    return x.astype(np.float32), labels
+
+
+def models_phase(dev, smi):
+    """Phase 17: the model families at the reference's default widths.
+    Returns the launches of the driven path (the 'double' preset)."""
+    import torch
+
+    from speech_tpu_torch import models, nn
+    from speech_tpu_torch.compute import STFTFrameComputer
+    from speech_tpu_torch.serve import StreamPool
+
+    counted = {}
+    rng = np.random.RandomState(17)
+
+    def frontend(device, dtype):
+        comp = STFTFrameComputer(dict(BANK), device=device, **{**MAIN, "dtype": dtype})
+        return nn.STFTFrontend(comp, dtype=dtype)
+
+    def train(label, model, batch, out_of):
+        """4 Adam steps (the loss finite and lower after them), the forward
+        and step ms, one step traced, and on 2 rows the card's float32
+        forward and ``make_train_step``'s gradients against the same
+        parameters' float64 forward and gradients (with the card's ReLU
+        pattern) on the CPU; the same gradients with TF32 allowed are
+        printed beside them."""
+        step = models.make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+        with torch.no_grad():
+            before = model.loss(*batch)[0].item()
+        for _ in range(4):
+            step(*batch)
+        with torch.no_grad():
+            after = model.loss(*batch)[0].item()
+        check(np.isfinite(before) and np.isfinite(after) and after < before,
+              f"{label}: loss {before} -> {after} after 4 Adam steps")
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: model(batch[0], batch[1]))
+        step_ms = cuda_ms(lambda: step(*batch), reps=3)
+        _, n_k, busy, wall, top, _ = traced(lambda: step(*batch))
+        twin = out_of(frontend("cpu", "float64"))
+        with torch.no_grad():  # the same parameters, in float64 on the CPU
+            for p, q in zip(model.parameters(), twin.parameters()):
+                q.copy_(p.double().cpu())
+        rows = [b[:2] for b in batch]
+        host_rows = [r.cpu().double() if r.dtype == torch.float32 else r.cpu() for r in rows]
+        errs = {}
+        with torch.no_grad():
+            f32 = model.frontend(rows[0], rows[1])
+            f64 = twin.frontend(*host_rows[:2])
+            errs["features"] = (f32.cpu().double() - f64).abs().max().item()
+            got, want = model(*rows[:2]), twin(*host_rows[:2])
+            if isinstance(got, tuple):  # CTC: log probabilities on valid frames, loss
+                c = got[1].cpu()
+                errs["log_probs"] = max(
+                    (got[0][i, : c[i]].cpu().double() - want[0][i, : c[i]]).abs().max().item()
+                    for i in range(2))
+                g_loss = model.loss(*rows)[1]["per_example"].cpu().double()
+                w_loss = twin.loss(*host_rows)[1]["per_example"]
+                errs["per-example loss (relative)"] = ((g_loss - w_loss).abs() / w_loss.abs()).max().item()
+            else:
+                errs["output"] = (got.cpu().double() - want).abs().max().item()
+        keep, masks = KeepGrads(model.parameters()), []
+        with relu_pattern(masks):
+            models.make_train_step(model, keep)(*rows)
+        with relu_pattern(masks, replay=True):
+            twin.loss(*host_rows)[0].backward()
+        want_grads = [q.grad for q in twin.parameters()]
+        grad_err, grad_top = relative_grad_errs(model, keep.grads, want_grads)
+        with tf32_allowed():  # the control: the backward outside ieee_float32
+            model.loss(*rows)[0].backward()
+        tf32_err, tf32_top = relative_grad_errs(
+            model, [p.grad for p in model.parameters()], want_grads)
+        model.zero_grad()
+        print(f"{label}: loss {before:.4f} -> {after:.4f} after 4 Adam steps; forward "
+              f"{fwd_ms:.3f} ms, make_train_step (Adam) {step_ms:.3f} ms; one step traced: "
+              f"{n_k} kernels, device busy {busy:.3f} ms of its {wall:.3f} ms wall, top {top}; "
+              f"float32 card vs float64 CPU on 2 rows: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tol {TOL_FLOAT:g}); make_train_step's gradients {grad_err:.3e} of each "
+              f"tensor's largest {grad_top} (tol {TOL_GRAD:g}; with TF32 allowed "
+              f"{tf32_err:.3e} {tf32_top}) [{smi}]", flush=True)
+        for k, v in errs.items():
+            check(v <= TOL_FLOAT, f"{label}: {k} {v} from float64")
+        check(grad_err <= TOL_GRAD, f"{label}: gradients {grad_err} from float64")
+        return step
+
+    # KWS: 32 x 1 s, 10 classes
+    x, labels = _tones(rng, 32, 1, 10)
+    kws_batch = (torch.tensor(x, device=dev), torch.full((32,), x.shape[1], device=dev),
+                 torch.tensor(labels, device=dev))
+
+    def kws_of(fe):
+        return models.KWSModel(fe, num_classes=10, channels=(64, 64),
+                               generator=torch.Generator().manual_seed(1))
+
+    kws = kws_of(frontend(dev, "float32"))
+    kws_step = train("KWSModel fbank-41, channels (64, 64), 10 classes, 32 x 1 s", kws,
+                     kws_batch, kws_of)
+
+    # speaker: 32 x 3 s, 10 speakers
+    x, labels = _tones(rng, 32, 3, 10)
+    spk_batch = (torch.tensor(x, device=dev), torch.full((32,), x.shape[1], device=dev),
+                 torch.tensor(labels, device=dev))
+
+    def spk_of(fe):
+        return models.SpeakerModel(fe, num_speakers=10, embed_dim=192, channels=(128, 128, 128),
+                                   generator=torch.Generator().manual_seed(2))
+
+    train("SpeakerModel TDNN (128, 128, 128), embed 192, 32 x 3 s", spk_of(frontend(dev, "float32")),
+          spk_batch, spk_of)
+
+    # CTC: 16 x 10 s, vocabulary 28
+    x, _ = _tones(rng, 16, 10, 28)
+    lab_len = rng.randint(20, 61, size=16)
+    labs = np.zeros((16, 60), np.int64)
+    for i, n in enumerate(lab_len):
+        labs[i, :n] = rng.randint(1, 29, size=n)
+    ctc_batch = (torch.tensor(x, device=dev), torch.full((16,), x.shape[1], device=dev),
+                 torch.tensor(labs, device=dev), torch.tensor(lab_len, device=dev))
+
+    def ctc_of(fe):
+        return models.CTCModel(fe, vocab_size=28, model_dim=128, num_layers=2, num_heads=4,
+                               ffn_dim=512, generator=torch.Generator().manual_seed(3))
+
+    ctc = ctc_of(frontend(dev, "float32"))
+    train("CTCModel dim 128, 2 layers, 4 heads, FFN 512, vocabulary 28, 16 x 10 s", ctc,
+          ctc_batch, ctc_of)
+    # the step's share of the loss: its recursion over frames, forward and
+    # backward, on the model's log probabilities
+    with torch.no_grad():
+        aux = ctc.loss(*ctc_batch)[1]
+    frames = aux["log_probs"].shape[1]
+    leaf = aux["log_probs"].clone().requires_grad_()
+    logit_pad = (torch.arange(frames, device=dev)[None] >= aux["counts"][:, None]).float()
+    label_pad = (torch.arange(labs.shape[1], device=dev)[None] >= ctc_batch[3][:, None]).float()
+
+    def ctc_loss_alone():
+        leaf.grad = None
+        models.ctc.ctc_loss(leaf, logit_pad, ctc_batch[2], label_pad).mean().backward()
+
+    _, n_k, busy, wall, _, _ = traced(ctc_loss_alone)
+    print(f"CTC loss alone (the recursion over {frames} frames, forward + backward): "
+          f"{cuda_ms(ctc_loss_alone, reps=3):.3f} ms; traced: {n_k} kernels, device busy "
+          f"{busy:.3f} ms of its {wall:.3f} ms wall [{smi}]", flush=True)
+
+    # StreamingKWS: 16 sessions of 1 s in a pool, ticks under the sync check
+    skws = models.StreamingKWS(kws, window_frames=128, chunk_size=STREAM_CHUNK)
+    pool = StreamPool(skws, slots=STREAM_SESSIONS)
+    sigs = kws_batch[0][:STREAM_SESSIONS].cpu().numpy()
+    handles = [pool.open() for _ in range(STREAM_SESSIONS)]
+    for h, sig in zip(handles, sigs):
+        pool.feed(h, sig)
+    pool.warmup(depths=(1,))
+    ticks = []
+    rows = {h: [] for h in handles}
+    while any(len(pool._sessions[h].pending) for h in handles):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_sync():
+            pending = pool._queue_tick(max_chunks=1)
+        for h, r in pool._finish_tick(pending):
+            rows[h].append(r)
+        ticks.append((time.perf_counter() - t0) * 1e3)
+    for h, r in pool.close_many(handles):
+        rows[h].append(r)
+    with torch.no_grad():
+        want = kws(kws_batch[0][:STREAM_SESSIONS], kws_batch[1][:STREAM_SESSIONS]).cpu().numpy()
+    err = max(np.abs(np.concatenate(rows[h])[-1] - want[i]).max() for i, h in enumerate(handles))
+    print(f"StreamingKWS in a StreamPool of {STREAM_SESSIONS} sessions x 1 s, chunk "
+          f"{STREAM_CHUNK}: {len(ticks)} ticks queued no host sync, tick latency (one readback) "
+          f"median {statistics.median(ticks):.3f} ms; close rows vs the model on the whole "
+          f"signal max abs {err:.3e} (tol {TOL_FLOAT:g}) [{smi}]", flush=True)
+    check(err <= TOL_FLOAT, f"StreamingKWS pool vs the batch model: {err}")
+
+    # a train-state round trip on the card, bitwise
+    opt = torch.optim.Adam(kws.parameters(), lr=1e-3)
+    step = models.make_train_step(kws, opt)
+    step(*kws_batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        with models.TrainCheckpointer(tmp) as ckpt:
+            ckpt.save(1, kws, opt, extra={"epoch": 3})
+        twin = kws_of(frontend(dev, "float32"))
+        twin_opt = torch.optim.Adam(twin.parameters(), lr=1e-3)
+        with models.TrainCheckpointer(tmp) as ckpt:
+            at, _, _, extra = ckpt.restore(like=(twin, twin_opt))
+    same = all(torch.equal(a, b) for a, b in zip(kws.parameters(), twin.parameters()))
+    models.make_train_step(twin, twin_opt)(*kws_batch)
+    step(*kws_batch)
+    resumed = all(torch.equal(a, b) for a, b in zip(kws.parameters(), twin.parameters()))
+    print(f"TrainCheckpointer round trip on the card: step {at}, extra {extra}, parameters "
+          f"bitwise equal {same}, one more Adam step from each bitwise equal {resumed}", flush=True)
+    check(same and resumed and at == 1 and extra == {"epoch": 3}, "checkpoint round trip")
+
+    # the flagship preset at 'double': one B2 launch
+    preset = models.create("fbank-energy-41-16k", precision="double", device=dev)
+    (feats, counts), got = driven(counted, lambda: preset.compute_batch(kws_batch[0], kws_batch[1]))
+    plain = models.create("fbank-energy-41-16k", precision="double", fft_mode="matmul", device=dev)
+    ref, _ = plain.compute_batch(kws_batch[0], kws_batch[1])
+    err = (feats - ref).abs().max().item()
+    print(f"preset fbank-energy-41-16k at 'double' on 32 x 1 s: stft_feats_int8 x"
+          f"{got['stft_feats_int8']}, vs the plain digit route max abs {err:.3e} "
+          f"(tol {TOL_INT8:g})", flush=True)
+    check(got["stft_feats_int8"] == 1 and err <= TOL_INT8, f"preset at 'double': {got}, {err}")
+    return counted
+
+
+def serving_phase(dev, smi):
+    """Phase 18: FeatureServer through B2 and StreamServer with threaded
+    sessions.  Returns the launches of the driven path (the burst)."""
+    import threading
+
+    import torch
+
+    from speech_tpu_torch.compute import STFTFrameComputer
+    from speech_tpu_torch.serve import FeatureServer, StreamServer
+
+    def computer(**kw):
+        return STFTFrameComputer(dict(BANK), device=dev, **{**MAIN, **kw})
+
+    counted = {}
+    rng = np.random.RandomState(18)
+    n_max = SECONDS * RATE
+    utts = [(rng.randn(rng.randint(RATE, n_max + 1)) * 0.1).astype(np.float32)
+            for _ in range(256)]
+    audio = sum(u.size for u in utts) / RATE
+    ref = computer(precision="double", fft_mode="matmul")
+    check(ref._use_kernel(dev) is None, "the reference computer takes a kernel route")
+    own, got = driven({}, lambda: [ref.compute_batch(u[None], [u.size])[0][0].cpu().numpy()
+                                    for u in utts])
+    check(not any(got.values()), f"the plain reference launched {got}")
+    comp = computer(precision="double")
+    comp.params
+
+    def burst(server):
+        out = [None] * len(utts)
+
+        def client(k):
+            futs = [(i, server.submit(utts[i])) for i in range(k, len(utts), 4)]
+            for i, f in futs:
+                out[i] = f.result()
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return out
+
+    def err_of(outs):
+        return max(np.abs(o - own[i]).max() if o.shape == own[i].shape else np.inf
+                   for i, o in enumerate(outs))
+
+    def host_spans(extractor):
+        """Time the dispatcher's two host calls on ``extractor`` (the
+        profiler records the ops of its own thread only): their ms, by
+        name, appended as they return."""
+        spans = {"_dispatch": [], "_collect": []}
+        for name, ms in spans.items():
+            def timed(*args, _fn=getattr(extractor, name), _ms=ms, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    _ms.append((time.perf_counter() - t0) * 1e3)
+            setattr(extractor, name, timed)
+        return spans
+
+    def traced_burst(server, spans):
+        for ms in spans.values():
+            ms.clear()
+        out = traced(lambda: burst(server))
+        return out + ({k: (len(v), round(sum(v), 3), round(max(v), 3))
+                       for k, v in spans.items()},)
+
+    with FeatureServer(comp, max_batch=64, max_wait_ms=2.0) as server:
+        spans = host_spans(server._extractor)
+        server.warmup([n_max])
+        # burst 1 (the first after the warm-up) and burst 2, each traced:
+        # device busy and wall time of the same burst, and the dispatcher's
+        # host calls (count, summed ms, longest ms)
+        traces = [traced_burst(server, spans) for _ in range(2)]
+        # burst 3, untraced: the launches counted from 0, the throughput
+        batches = server.stats["batches"]
+        t0 = time.perf_counter()
+        outs, launched = driven(counted, lambda: burst(server))
+        wall = time.perf_counter() - t0
+        stats = dict(server.stats)
+        err = max(err_of(t[0]) for t in traces + [(outs,)])
+        lone = []
+        for i in range(100):
+            u = utts[i % 16]
+            t1 = time.perf_counter()
+            server.extract(u)
+            lone.append((time.perf_counter() - t1) * 1e3)
+    print(f"FeatureServer at 'double', 4 client threads x 64 ragged utterances of 1-{SECONDS} s "
+          f"({audio:.0f} s of audio) a burst: max abs vs each utterance alone on the plain digit "
+          f"route {err:.3e} (tol {TOL_INT8:g}); stats after 3 bursts {stats}; burst 3 "
+          f"(untraced): stft_feats_int8 x{launched['stft_feats_int8']} for "
+          f"{stats['batches'] - batches} micro-batches, {audio / wall:.0f} audio-s/s "
+          f"({wall * 1e3:.1f} ms); lone request latency p50 {np.percentile(lone, 50):.3f} ms, "
+          f"p99 {np.percentile(lone, 99):.3f} ms [{smi}]", flush=True)
+    for k, (_, n_k, busy, t_wall, top, host, calls) in enumerate(traces, 1):
+        print(f"FeatureServer burst {k} under the profiler: {audio / t_wall * 1e3:.0f} audio-s/s "
+              f"({t_wall:.1f} ms wall), {n_k} kernels, device busy {busy:.3f} ms, idle "
+              f"{100 * (1 - busy / t_wall):.1f}% of this burst's wall; the dispatcher's host "
+              f"calls (count, ms, longest ms) {calls}; top kernels {top}; top host events "
+              f"{host} [{smi}]", flush=True)
+    check(err <= TOL_INT8, f"FeatureServer vs the plain route: {err}")
+    check(stats["failed"] == 0 and stats["completed"] == 3 * len(utts),
+          f"FeatureServer stats {stats}")
+    check(launched["stft_feats_int8"] == stats["batches"] - batches,
+          f"B2 launches {launched['stft_feats_int8']} != batches {stats['batches'] - batches}")
+
+    # StreamServer: 16 threaded sessions of StreamingSTFT
+    plain = computer()
+    sigs = [(rng.randn(rng.randint(3 * RATE, 6 * RATE)) * 0.1).astype(np.float32)
+            for _ in range(STREAM_SESSIONS)]
+    results = {}
+    t0 = time.perf_counter()
+    with StreamServer(plain, slots=STREAM_SESSIONS, chunk_size=STREAM_CHUNK) as server:
+        handles = [server.open_session() for _ in sigs]
+
+        def feeder(h, sig):
+            r = np.random.RandomState(h)
+            i = 0
+            while i < sig.size:
+                k = int(r.randint(400, 3200))
+                server.feed(h, sig[i: i + k])
+                i += k
+            server.close_session(h)
+
+        threads = [threading.Thread(target=feeder, args=(h, s)) for h, s in zip(handles, sigs)]
+        for t in threads:
+            t.start()
+        for h in handles:
+            results[h] = list(server.iter_results(h))
+        for t in threads:
+            t.join()
+    wall = time.perf_counter() - t0
+    err = 0.0
+    for h, sig in zip(handles, sigs):
+        out = np.concatenate(results[h])
+        want = plain.compute_full(sig)
+        check(out.shape == want.shape, f"StreamServer session {h}: {out.shape} != {want.shape}")
+        err = max(err, np.abs(out - want).max())
+    audio = sum(s.size for s in sigs) / RATE
+    print(f"StreamServer {STREAM_SESSIONS} threaded sessions of StreamingSTFT ({audio:.0f} s of "
+          f"audio, ragged feeds): rows vs compute_full max abs {err:.3e} (tol {TOL_FLOAT:g}); "
+          f"{wall * 1e3:.1f} ms wall [{smi}]", flush=True)
+    check(err <= TOL_FLOAT, f"StreamServer vs compute_full: {err}")
     return counted
 
 

@@ -12,5 +12,6 @@ from . import alias, config, scales, utils  # noqa: F401
 from . import filters, compute  # noqa: F401
 from . import ops  # noqa: F401
 from . import nn, parallel  # noqa: F401
+from . import models, serve  # noqa: F401
 
 __version__ = "0.1.0"

@@ -15,7 +15,6 @@ float32 (or float64) on the signal's device, as the reference runs them at
 ``Precision.HIGHEST``.
 """
 
-import contextlib
 from functools import lru_cache
 from math import gcd
 from typing import Optional
@@ -26,7 +25,7 @@ import torch.nn.functional as TF
 
 from ._device import as_tensor, host_constant
 from .framing import frame_padded
-from .stft import ieee_float32
+from .stft import float32_mode
 
 __all__ = ["fir_conv_matmul", "resample", "resample_matrices", "resample_np"]
 
@@ -34,26 +33,16 @@ __all__ = ["fir_conv_matmul", "resample", "resample_matrices", "resample_np"]
 _PRECISION_NAMES = ("default", "high", "highest")
 
 
-@contextlib.contextmanager
-def _tf32():
-    matmul = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("high")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(matmul)
-
-
 def _products(precision="highest"):
     """The context float32 products run in for a reference precision name:
-    IEEE float32 for ``"highest"`` (:func:`.stft.ieee_float32`), TF32 on
-    the card for ``"high"`` and ``"default"`` (the reduced tiers; the CPU
-    computes every tier in IEEE float32).  A ``jax.lax.Precision`` member's
-    name is accepted too."""
+    IEEE float32 for ``"highest"``, TF32 on the card for ``"high"`` and
+    ``"default"`` (the reduced tiers; the CPU computes every tier in IEEE
+    float32), as a :func:`.stft.float32_mode` block.  A
+    ``jax.lax.Precision`` member's name is accepted too."""
     name = str(getattr(precision, "name", precision)).lower()
     if name not in _PRECISION_NAMES:
         raise ValueError(f"precision must be one of {_PRECISION_NAMES}, got {precision!r}")
-    return ieee_float32() if name == "highest" else _tf32()
+    return float32_mode("ieee" if name == "highest" else "tf32")
 
 
 def _signal(signal, device):

@@ -28,6 +28,7 @@ for 'accurate'.
 """
 
 import contextlib
+import threading
 from typing import Optional
 
 import numpy as np
@@ -342,25 +343,86 @@ def windowed_dft_matrices(window: np.ndarray, dft_size: int):
 # --- device path (torch) -----------------------------------------------------
 
 
+# the flags of the float32 modes are process-global: blocks of one mode that
+# overlap in different threads (a serving thread beside a training loop)
+# share one setting, made on the first entry and given back on the last
+# exit; a block of the other mode waits until every open block has exited
+_FLOAT32_MODES = {
+    # mode: (float32_matmul_precision, cudnn.allow_tf32, cudnn.deterministic),
+    # None keeping the caller's setting
+    "ieee": ("highest", False, True),
+    "tf32": ("high", None, None),
+}
+_MODE_CHANGE = threading.Condition()
+_mode = None  # the mode of the open blocks
+_mode_depth = 0
+_mode_saved = None
+_mode_local = threading.local()  # this thread's open blocks (mode, depth)
+
+
 @contextlib.contextmanager
+def float32_mode(mode: str):
+    """Run the block's float32 products and convolutions in ``mode``:
+    ``"ieee"`` (IEEE float32, TF32 off for matmuls and cuDNN, and cuDNN's
+    deterministic algorithms: with TF32 off it would otherwise pick a
+    weight-gradient algorithm that sums with atomics, so that two equal
+    training steps differ) or ``"tf32"`` (TF32 matmuls, cuDNN left as the
+    caller set it); the caller's settings come back after the block.
+
+    The flags are process-global, so blocks share them across threads:
+    the first block to enter saves the caller's settings and sets the
+    mode, nested and overlapping blocks of the same mode (in any thread)
+    only count, and the last block to exit gives the saved settings back.
+    A block of the other mode waits until every open block has exited, so
+    no block runs under another block's mode.  Nesting a block of the
+    other mode inside one of this thread's own blocks raises
+    RuntimeError (it would wait on itself)."""
+    global _mode, _mode_depth, _mode_saved
+    matmul, cudnn_tf32, cudnn_deterministic = _FLOAT32_MODES[mode]
+    held, held_depth = getattr(_mode_local, "held", (None, 0))
+    if held_depth and held != mode:
+        raise RuntimeError(f"a {mode!r} float32 block inside this thread's {held!r} block")
+    with _MODE_CHANGE:
+        while _mode_depth and _mode != mode:
+            _MODE_CHANGE.wait()
+        if _mode_depth == 0:
+            _mode_saved = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32,
+                           torch.backends.cudnn.deterministic)
+            torch.set_float32_matmul_precision(matmul)
+            if cudnn_tf32 is not None:
+                torch.backends.cudnn.allow_tf32 = cudnn_tf32
+            if cudnn_deterministic is not None:
+                torch.backends.cudnn.deterministic = cudnn_deterministic
+            _mode = mode
+        _mode_depth += 1
+    _mode_local.held = (mode, held_depth + 1)
+    try:
+        yield
+    finally:
+        _mode_local.held = (mode, held_depth) if held_depth else (None, 0)
+        with _MODE_CHANGE:
+            _mode_depth -= 1
+            if _mode_depth == 0:
+                torch.set_float32_matmul_precision(_mode_saved[0])
+                torch.backends.cudnn.allow_tf32 = _mode_saved[1]
+                torch.backends.cudnn.deterministic = _mode_saved[2]
+                _mode, _mode_saved = None, None
+                _MODE_CHANGE.notify_all()
+
+
 def ieee_float32():
     """Turn TF32 off for the float32 products and convolutions inside the
-    block, and give the caller's settings back after it.
+    block, and give the caller's settings back after it:
+    :func:`float32_mode` ``("ieee")``.
 
     The port's float32 contract is IEEE float32 (the reference's
     'highest'); TF32 keeps about three decimal digits.  Wrapped around
     every feature computation rather than set once at import, so that a
     caller who turns TF32 on for their own model keeps it there and cannot
-    change the features."""
-    matmul = torch.get_float32_matmul_precision()
-    cudnn = torch.backends.cudnn.allow_tf32
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(matmul)
-        torch.backends.cudnn.allow_tf32 = cudnn
+    change the features.  Safe across threads (see :func:`float32_mode`):
+    no block's exit can turn TF32 on under another block that is still
+    running."""
+    return float32_mode("ieee")
 
 
 def _resolve_fft_mode(mode: Optional[str], dft_size: int) -> str:

@@ -8,6 +8,7 @@ on a GPU machine, from the repo root:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import contextlib
 import functools
 import importlib.util
 import os
@@ -23,6 +24,9 @@ from speech_tpu_torch.ops import stft_kernels as K
 
 BANK = {"name": "fbank", "num_filts": 40, "sampling_rate": 16000}
 TOL_FLOAT = 1e-4  # f32 reduction order (tests/test_pallas.py:55)
+# float32 gradients vs float64, relative to each tensor's largest: the
+# float tier's 1e-4; TF32 keeps about three decimal digits
+TOL_GRAD = 1e-4
 TOL_INT8 = 2e-6  # exact digit tiers (tests/test_pallas.py:175)
 RTOL_LINEAR = 1e-5  # linear features carry the scale: f32 relative rounding
 TOL_DEFAULT = 1.5e-2  # the reduced float tier ('default'; pallas_stft.py:23-27)
@@ -866,3 +870,222 @@ def test_export_computer_double_runs_b2_with_trained_params():
     assert torch.equal(got, again)
     after, _ = original.compute_batch(x, lens)
     assert torch.equal(after, before)
+
+
+# --- the model families and serving --------------------------------------------
+
+
+def _model_pair(kind, dev):
+    """A model of ``kind`` on the card in float32 and its float64 twin on
+    the CPU holding the same parameters."""
+    from speech_tpu_torch import models, nn
+
+    def make(device, dtype):
+        comp = STFTFrameComputer(dict(BANK), frame_length_ms=25, frame_shift_ms=10,
+                                 include_energy=True, dtype=dtype, device=device)
+        fe = nn.STFTFrontend(comp, dtype=dtype)
+        gen = torch.Generator().manual_seed(11)
+        if kind == "kws":
+            return models.KWSModel(fe, num_classes=4, channels=(16, 16), generator=gen)
+        if kind == "speaker":
+            return models.SpeakerModel(fe, num_speakers=4, embed_dim=16, channels=(16, 16, 16),
+                                       generator=gen)
+        return models.CTCModel(fe, vocab_size=5, model_dim=32, num_layers=1, num_heads=2,
+                               ffn_dim=64, generator=gen)
+
+    card, host = make(dev, "float32"), make("cpu", "float64")
+    with torch.no_grad():
+        for (name, p), (_, q) in zip(card.named_parameters(), host.named_parameters()):
+            if p.dim() > 1 and not name.startswith("frontend"):
+                p.normal_(0.0, 0.3)  # the zero heads too
+            q.copy_(p.double().cpu())
+    return card, host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["kws", "speaker", "ctc"])
+def test_models_on_the_card_track_float64(kind):
+    """The model families' float32 forward (IEEE products: no TF32) and
+    loss on the card against the same parameters in float64 on the CPU."""
+    dev = _device()
+    card, host = _model_pair(kind, dev)
+    rng = np.random.RandomState(23)
+    x = (rng.randn(3, 16000) * 0.1).astype(np.float32)
+    lengths = np.array([16000, 12000, 7000])
+    labels = np.array([[1, 2, 3], [4, 1, 0], [2, 0, 0]]) if kind == "ctc" else np.array([0, 3, 1])
+    batch = [x, lengths, labels] + ([np.array([3, 2, 1])] if kind == "ctc" else [])
+    with torch.no_grad():
+        got, want = card(x, lengths), host(x.astype(np.float64), lengths)
+        if kind == "ctc":
+            for i, c in enumerate(got[1].cpu()):
+                assert torch.allclose(got[0][i, :c].cpu().double(), want[0][i, :c], atol=TOL_FLOAT)
+        else:
+            assert torch.allclose(got.cpu().double(), want, atol=TOL_FLOAT), (
+                got.cpu().double() - want).abs().max().item()
+        g_loss, h_loss = card.loss(*batch)[0].item(), host.loss(*batch)[0].item()
+    assert abs(g_loss - h_loss) <= TOL_FLOAT * max(1.0, abs(h_loss)), (g_loss, h_loss)
+
+
+class _KeepGrads(torch.optim.Optimizer):
+    """An optimizer whose step only keeps a copy of the gradients."""
+
+    def __init__(self, params):
+        super().__init__(params, {})
+        self.grads = None
+
+    def step(self, closure=None):
+        self.grads = [p.grad.detach().clone() for g in self.param_groups for p in g["params"]]
+
+
+def _grad_err(got, want):
+    """The largest gradient difference, each tensor's relative to its
+    largest float64 gradient."""
+    return max(((g.cpu().double() - w).abs().max() / w.abs().max()).item()
+               for g, w in zip(got, want))
+
+
+@contextlib.contextmanager
+def _relu_pattern(masks, replay=False):
+    """``torch.relu`` that appends each call's ``z > 0`` to ``masks``, or
+    with ``replay`` applies the recorded ones in their order.
+
+    ReLU's derivative jumps at 0: a pre-activation within rounding of 0
+    takes one branch in float32 and the other in float64, and moves its
+    column's gradient by up to about 1e-3 of the largest. Replaying the
+    card's pattern in the float64 twin leaves the arithmetic alone to
+    compare."""
+    relu, pattern = torch.relu, iter(list(masks))
+
+    def record(z):
+        masks.append((z > 0).cpu())
+        return relu(z)
+
+    def apply(z):
+        return z * next(pattern).to(device=z.device, dtype=z.dtype)
+
+    torch.relu = apply if replay else record
+    try:
+        yield
+    finally:
+        torch.relu = relu
+
+
+def _train_batch(kind):
+    rng = np.random.RandomState(37)
+    x = (rng.randn(3, 16000) * 0.1).astype(np.float32)
+    lengths = np.array([16000, 12000, 7000])
+    labels = np.array([[1, 2, 3], [4, 1, 0], [2, 0, 0]]) if kind == "ctc" else np.array([0, 3, 1])
+    return [x, lengths, labels] + ([np.array([3, 2, 1])] if kind == "ctc" else [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["kws", "speaker", "ctc"])
+def test_train_step_gradients_on_the_card_track_float64(kind):
+    """``make_train_step``'s float32 gradients on the card (the backward's
+    convolutions and products in IEEE float32) against the float64
+    gradients of the same parameters on the CPU, with the card forward's
+    ReLU pattern, within TOL_GRAD of each tensor's largest; the same
+    backward with TF32 allowed (PyTorch's default for cuDNN) misses that
+    tolerance, so the check can see it."""
+    from speech_tpu_torch import models
+
+    dev = _device()
+    card, host = _model_pair(kind, dev)
+    batch = _train_batch(kind)
+    keep = _KeepGrads(card.parameters())
+    masks = []
+    with _relu_pattern(masks):
+        models.make_train_step(card, keep)(*batch)
+    with _relu_pattern(masks, replay=True):
+        host.loss(*batch)[0].backward()
+    want = [p.grad for p in host.parameters()]
+    err = _grad_err(keep.grads, want)
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cudnn.allow_tf32 = True
+        card.loss(*batch)[0].backward()  # outside ieee_float32: TF32
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    control = _grad_err([p.grad for p in card.parameters()], want)
+    assert err <= TOL_GRAD < control, (err, control)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["kws", "speaker", "ctc"])
+def test_train_step_is_deterministic_on_the_card(kind):
+    """Two models in the same state take an Adam ``make_train_step`` on the
+    same batch to bitwise equal parameters: the IEEE backward keeps to
+    cuDNN's deterministic algorithms (a resumed run can equal an
+    uninterrupted one)."""
+    import copy
+
+    from speech_tpu_torch import models
+
+    card, _ = _model_pair(kind, _device())
+    twin = copy.deepcopy(card)
+    for m in (card, twin):
+        models.make_train_step(m, torch.optim.Adam(m.parameters(), lr=1e-3))(*_train_batch(kind))
+    for (name, a), b in zip(card.named_parameters(), twin.parameters()):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:Synchronization debug mode is a prototype")
+def test_kws_pool_tick_queues_no_sync():
+    """StreamingKWS sessions in a StreamPool: each tick's device work is
+    queued under set_sync_debug_mode("error"), and each session's close row
+    equals the model on its whole signal."""
+    from speech_tpu_torch.models import StreamingKWS
+    from speech_tpu_torch.serve import StreamPool
+
+    dev = _device()
+    card, _ = _model_pair("kws", dev)
+    pool = StreamPool(StreamingKWS(card, window_frames=128, chunk_size=1600), slots=4)
+    rng = np.random.RandomState(29)
+    sigs = [(rng.randn(n) * 0.1).astype(np.float32) for n in (16000, 11000, 4800)]
+    handles = [pool.open() for _ in sigs]
+    for h, s in zip(handles, sigs):
+        pool.feed(h, s)
+    while any(len(pool._sessions[h].pending) for h in handles):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = pool._queue_tick(max_chunks=2)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        pool._finish_tick(pending)
+    closed = dict(pool.close_many(handles))
+    with torch.no_grad():
+        for h, s in zip(handles, sigs):
+            want = card(s[None], [s.size])[0].cpu().numpy()
+            np.testing.assert_allclose(closed[h][-1], want, rtol=0, atol=TOL_FLOAT)
+
+
+@pytest.mark.cuda
+def test_feature_server_launches_b2_once_a_micro_batch():
+    """FeatureServer at 'double' on the card: one int8 digit kernel launch
+    per micro-batch, and every result within the digit tolerance of the
+    utterance alone on the plain digit route."""
+    from speech_tpu_torch.serve import FeatureServer
+
+    dev = _device()
+
+    def comp(**kw):
+        return STFTFrameComputer(dict(BANK), frame_length_ms=25, frame_shift_ms=10,
+                                 include_energy=True, precision="double", device=dev, **kw)
+
+    rng = np.random.RandomState(31)
+    utts = [(rng.randn(rng.randint(16000, 80000)) * 0.1).astype(np.float32) for _ in range(20)]
+    plain = comp(fft_mode="matmul")
+    with FeatureServer(comp(), max_batch=8, max_wait_ms=5.0) as server:
+        server.warmup([80000])
+        K.reset_launch_counts()
+        outs = server.extract_many(utts)
+        launches = K.launch_counts()["stft_feats_int8"]
+        stats = dict(server.stats)
+    assert stats["failed"] == 0 and launches == stats["batches"] >= 3
+    for u, got in zip(utts, outs):
+        want = plain.compute_batch(u[None], [u.size])[0][0].cpu().numpy()
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=TOL_INT8)

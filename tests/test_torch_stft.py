@@ -114,3 +114,121 @@ def test_feature_call_leaves_callers_tf32_settings(mode):
     finally:
         torch.set_float32_matmul_precision(saved[0])
         torch.backends.cudnn.allow_tf32 = saved[1]
+
+
+def test_ieee_float32_is_safe_across_threads():
+    """Two threads each hold an ``ieee_float32`` block, overlapping (a
+    barrier inside both): the flags stay IEEE in both until the last block
+    exits, whichever exits first, and are the caller's again after."""
+    import threading
+
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    seen, errors = [], []
+    inside = threading.Barrier(2)
+    first_out = threading.Event()
+
+    def flags():
+        return (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+
+    def worker(leaves_first):
+        try:
+            with TS.ieee_float32():
+                inside.wait(timeout=30)
+                if leaves_first:
+                    seen.append(("first, inside", flags()))
+                else:
+                    first_out.wait(timeout=30)  # the other block has exited
+                    seen.append(("last, after the other's exit", flags()))
+            if leaves_first:
+                first_out.set()
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+            first_out.set()
+
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cudnn.allow_tf32 = True
+        threads = [threading.Thread(target=worker, args=(k,)) for k in (True, False)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        assert dict(seen) == {"first, inside": ("highest", False),
+                              "last, after the other's exit": ("highest", False)}
+        assert flags() == ("high", True)
+        with TS.ieee_float32():  # nested blocks on one thread
+            with TS.ieee_float32():
+                pass
+            assert flags() == ("highest", False)
+        assert flags() == ("high", True)
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
+def test_float32_modes_do_not_overlap_across_threads():
+    """A TF32 block (resampling at 'high') that starts in one thread while
+    another thread holds an ``ieee_float32`` block waits for it to exit:
+    the IEEE block keeps IEEE flags throughout, the TF32 block then runs
+    with TF32 matmuls and the caller's cuDNN setting, and the caller's
+    settings come back after both.  A block of the other mode nested in a
+    thread's own block raises."""
+    import threading
+    import time
+
+    from speech_tpu_torch.ops import resample
+
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    seen, errors = {}, []
+    ieee_in, tf32_start, tf32_in = threading.Event(), threading.Event(), threading.Event()
+
+    def flags():
+        return (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32,
+                torch.backends.cudnn.deterministic)
+
+    def ieee_worker():
+        try:
+            with TS.ieee_float32():
+                ieee_in.set()
+                tf32_start.wait(timeout=30)
+                time.sleep(0.2)  # the TF32 block is waiting by now
+                seen["ieee, the other waiting"] = (flags(), tf32_in.is_set())
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+            ieee_in.set()
+
+    def tf32_worker():
+        try:
+            ieee_in.wait(timeout=30)
+            tf32_start.set()
+            with resample._products("high"):
+                tf32_in.set()
+                seen["tf32"] = flags()
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    try:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = False
+        threads = [threading.Thread(target=f) for f in (ieee_worker, tf32_worker)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        assert seen == {"ieee, the other waiting": (("highest", False, True), False),
+                        "tf32": ("high", True, False)}
+        assert flags() == ("highest", True, False)
+        with TS.ieee_float32():
+            with pytest.raises(RuntimeError, match="inside this thread"):
+                with resample._products("high"):
+                    pass
+            assert flags() == ("highest", False, True)
+        assert flags() == ("highest", True, False)
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        torch.backends.cudnn.deterministic = saved[2]

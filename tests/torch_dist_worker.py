@@ -15,8 +15,10 @@ Usage: python torch_dist_worker.py <rank> <world> <store file> <out .npz> <cases
 
 where ``<cases>`` is ``parallel`` (:func:`run_cases`), ``train`` (the
 data x filter sharded training step of the STFT frontend,
-:func:`train_step`; world sizes 2 and 4) or ``bench`` (:func:`extract_bench`,
-GPUs only), and ``<device>`` is ``cpu`` (gloo; the default) or ``cuda``
+:func:`train_step`; world sizes 2 and 4), ``models_train`` (the
+data-parallel step of a KWS model, :func:`models_train_step`),
+``serve_pool`` (a ``StreamPool`` with its slots over the data axis,
+:func:`serve_pool`) or ``bench`` (:func:`extract_bench`, GPUs only), and ``<device>`` is ``cpu`` (gloo; the default) or ``cuda``
 (NCCL, one card a rank: ``tools/torch_multichip.py`` runs the same cases
 on four cards).
 """
@@ -172,6 +174,98 @@ def train_step(x: np.ndarray, device: str = "cpu") -> dict:
         "train_window": _np(frontend.window),
         "train_weights": _np(torch.cat(blocks, dim=1)),
     }
+
+
+MODEL_CHANNELS = (16, 16)
+MODEL_LR = 1e-2
+
+
+def model_inputs() -> dict:
+    """The inputs of the model and serving cases (numpy, seeded): a batch of
+    8 ragged signals with labels, a head for the KWS model, and 4 session
+    signals."""
+    rng = np.random.RandomState(20261117)
+    signals = rng.randn(8, 2400)
+    lengths = rng.randint(1200, 2401, size=8)
+    for i, n in enumerate(lengths):
+        signals[i, n:] = 0.0
+    return {
+        "signals": signals,
+        "lengths": lengths,
+        "labels": rng.randint(0, 3, size=8),
+        "head": rng.randn(MODEL_CHANNELS[-1], 3),
+        "sessions": [rng.randn(rng.randint(1500, 5000)) for _ in range(4)],
+    }
+
+
+def kws_model(device="cpu"):
+    """The port's KWS model on the fbank-10 frontend (float64), its head
+    set from :func:`model_inputs` so that every layer gets a gradient."""
+    import torch
+
+    import speech_tpu_torch as stt
+
+    frontend = stt.nn.STFTFrontend(stft_computer(stt, device), dtype=torch.float64)
+    model = stt.models.KWSModel(frontend, num_classes=3, channels=MODEL_CHANNELS,
+                                generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        model.classifier.head.w.copy_(torch.tensor(model_inputs()["head"]))
+    return model
+
+
+def models_train_step(world: int, device: str = "cpu") -> dict:
+    """One data-parallel SGD step of the KWS model: each rank takes its
+    block of the batch's rows, ``make_train_step`` averages the gradients
+    over the group.  Returns the initial and the updated parameters (by
+    their ``"/"`` keys) and the metrics."""
+    import torch
+    import torch.distributed as dist
+
+    import speech_tpu_torch as stt
+
+    model = kws_model(device)
+    before = {n.replace(".", "/"): _np(p).copy() for n, p in model.named_parameters()}
+    x = model_inputs()
+    rank, per = dist.get_rank(), x["signals"].shape[0] // world
+    rows = slice(rank * per, (rank + 1) * per)
+    step = stt.models.make_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=MODEL_LR), group=dist.group.WORLD
+    )
+    metrics = step(x["signals"][rows], x["lengths"][rows], x["labels"][rows])
+    out = {f"before/{k}": v for k, v in before.items()}
+    out.update({f"after/{n.replace('.', '/')}": _np(p) for n, p in model.named_parameters()})
+    out.update({f"metric/{k}": _np(v) for k, v in metrics.items()})
+    return out
+
+
+def serve_pool(world: int, device: str = "cpu") -> dict:
+    """A ``StreamPool`` of 4 slots with its slots over the mesh's data axis:
+    every rank drives the same sessions; returns each session's rows."""
+    import speech_tpu_torch as stt
+    from speech_tpu_torch import parallel as par
+
+    mesh = par.make_mesh(("data",), devices=device)
+    pool = stt.serve.StreamPool(stft_computer(stt, device), slots=4, chunk_size=800, mesh=mesh)
+    sigs = model_inputs()["sessions"]
+    handles = [pool.open() for _ in sigs]
+    got = {h: [] for h in handles}
+    for h, s in zip(handles, sigs):
+        pool.feed(h, s[: len(s) // 2])
+    for h, f in pool.step():
+        got[h].append(f)
+    for h, s in zip(handles, sigs):
+        pool.feed(h, s[len(s) // 2:])
+    for h, f in pool.step(max_chunks=8):
+        got[h].append(f)
+    for h, f in pool.close_many(handles):
+        got[h].append(f)
+    out = {}
+    for i, h in enumerate(handles):
+        out[f"session{i}"] = np.concatenate(got[h])
+    out["refused"] = np.array(_raises(
+        lambda: stt.serve.StreamPool(stft_computer(stt, device), slots=world + 1, mesh=mesh),
+        ValueError, "multiple") if world > 1 else 1)
+    return out
 
 
 def run_cases(world: int, device: str = "cpu") -> dict:
@@ -367,6 +461,8 @@ def wait(procs, out):
 CASES = {
     "parallel": run_cases,
     "train": lambda world, device: train_step(inputs()["train"], device),
+    "models_train": models_train_step,
+    "serve_pool": serve_pool,
     "bench": extract_bench,
 }
 
