@@ -112,11 +112,29 @@ Phases (each passes or the script exits non-zero):
     of its own wall time (``torch.profiler``) and the dispatcher's host
     calls timed; ``StreamServer`` with 16 threaded sessions of
     ``StreamingSTFT`` against ``compute_full`` within TOL_FLOAT;
-19. print the kernels line and, last, the device line.
+19. the corpus CLIs (``speech_tpu_torch.command_line.main``, in process)
+    on 256 ragged 1-15 s int16 wav files at 16 kHz with silent gaps:
+    ``signals-to-torch-feat-dir`` at the main config's 'double' (B2, one
+    launch a batch of 64) with ``--num-workers 4 --profile DIR``, each file
+    within TOL_INT8 of its utterance alone on the plain digit route, with
+    its audio-s/s from files to files, its stage split and the device's
+    busy ms and idle share from the trace, then untraced; at
+    ``fft_mode="pallas"`` (B1) with deltas and ``--vad-trim '{}'``
+    against the same command on the plain path within TOL_FLOAT;
+    ``compute-feats-from-kaldi-tables`` from a ``scp`` of the same files,
+    bitwise equal to the ``.pt`` files, and ``copy-feats-tables`` ark ->
+    dir -> ark bitwise; ``torch-feat-dir-to-signals`` on 8 of the files
+    (4 iterations), its wavs bitwise equal to ``feats_to_signal`` (which
+    phase 12 holds against float64) on the same batches, rounded, and
+    their distance from float64 ``feats_to_signal`` on the CPU printed, as
+    phase 12 prints its float32 one; and
+    ``FeatureCorpus`` at 'double' bitwise equal to the files, which its
+    feature-file mode reads back bitwise;
+20. print the kernels line and, last, the device line.
 
 Every launch counter is set to 0 just before each driven path (phases 5,
-15, 16, 17 and 18) and read just after; the kernels line's launches are
-their sums.
+15, 16, 17, 18 and 19) and read just after; the kernels line's launches
+are their sums.
 
 B2 and B4 also run on banks wider than one filter group (phases 3-4):
 B2 at 1,489 and 2,978 filters, both tiers, on 16 x 15 s.
@@ -189,6 +207,7 @@ TOL_PIPE = 1e-9  # the float64 pipeline vs the batch ops (sums re-associated)
 TOL_GRAD = 1e-4
 PITCH_LONG_SECONDS = 60
 HALO_SECONDS = 600  # phase 15's one long signal
+CLI_UTTS, CLI_BATCH = 256, 64  # phase 19's corpus of files and its batches
 
 
 def fail(msg):
@@ -977,12 +996,12 @@ def main():
     for name, count in frontend_phase(dev, smi).items():
         launches[name] = launches.get(name, 0) + count
 
-    # 17. the model families; 18. serving
-    for phase in (models_phase, serving_phase):
+    # 17. the model families; 18. serving; 19. the corpus CLIs
+    for phase in (models_phase, serving_phase, cli_phase):
         for name, count in phase(dev, smi).items():
             launches[name] = launches.get(name, 0) + count
 
-    # 19. the kernels line, the card, the device line
+    # 20. the kernels line, the card, the device line
     kernels = []
     for name, e in entries.items():
         bound, bound_by = bound_ms(e)
@@ -1862,6 +1881,245 @@ def serving_phase(dev, smi):
           f"audio, ragged feeds): rows vs compute_full max abs {err:.3e} (tol {TOL_FLOAT:g}); "
           f"{wall * 1e3:.1f} ms wall [{smi}]", flush=True)
     check(err <= TOL_FLOAT, f"StreamServer vs compute_full: {err}")
+    return counted
+
+
+def trace_device_ms(trace_dir):
+    """Device ms by category (kernels, copies, memsets) in the one Chrome
+    trace that ``--profile DIR`` wrote into ``trace_dir``, and the ms its
+    events span."""
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"--profile wrote {len(files)} traces into {trace_dir}")
+    with open(files[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "ts" in e and "dur" in e]
+    out = {"kernel": 0.0, "gpu_memcpy": 0.0, "gpu_memset": 0.0}
+    for e in events:
+        if e.get("cat") in out:
+            out[e["cat"]] += e["dur"] / 1e3
+    span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
+    return out, span
+
+
+def cli_phase(dev, smi):
+    """Phase 19: the corpus CLIs through ``command_line.main``, in process,
+    on a corpus of wav files.  Returns the launches of the driven paths."""
+    import io
+
+    import torch
+
+    from speech_tpu_torch import command_line
+    from speech_tpu_torch.compute import STFTFrameComputer
+    from speech_tpu_torch.corpus import FeatureCorpus
+    from speech_tpu_torch.io import kaldi_tables as kt
+    from speech_tpu_torch.ops import invert
+
+    counted = {}
+    rng = np.random.RandomState(19)
+    tmp = tempfile.mkdtemp()
+    main_cfg = {"name": "stft", "bank": dict(BANK), **MAIN}
+
+    def cfg(**kw):
+        return json.dumps({**main_cfg, **kw})
+
+    def run(*argv):
+        """``main(argv)`` with its launches counted: (stderr, launches, wall s)."""
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc, got = driven(counted, lambda: command_line.main(list(argv)))
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"{argv[0]} returned {rc}: {err.getvalue()[-2000:]}")
+        return err.getvalue(), got, wall
+
+    def pt(directory, utt):
+        return torch.load(os.path.join(directory, utt + ".pt"))
+
+    try:
+        # 256 ragged 1-15 s int16 wavs of noise with 1-3 digitally silent
+        # gaps of 0.2-1 s each (so that --vad-trim drops frames; no frame
+        # has an energy near its threshold)
+        wav_dir = os.path.join(tmp, "wavs")
+        os.makedirs(wav_dir)
+        map_path = os.path.join(tmp, "map.txt")
+        pcms = {}
+        with open(map_path, "w") as mf:
+            for i in range(CLI_UTTS):
+                n = rng.randint(RATE, SECONDS * RATE + 1)
+                pcm = np.clip(rng.randn(n) * 3000, -32767, 32767).astype(np.int16)
+                for _ in range(rng.randint(1, 4)):
+                    g = rng.randint(RATE // 5, RATE + 1)
+                    start = rng.randint(0, max(n - g, 1))
+                    pcm[start: start + g] = 0
+                utt = f"utt{i:03d}"
+                path = os.path.join(wav_dir, utt + ".wav")
+                with wave.open(path, "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(RATE)
+                    w.writeframes(pcm.tobytes())
+                mf.write(f"{utt} {path}\n")
+                pcms[utt] = pcm
+        utts = sorted(pcms)
+        audio = sum(p.size for p in pcms.values()) / RATE
+        n_batches = -(-CLI_UTTS // CLI_BATCH)
+
+        # signals-to-torch-feat-dir at 'double' (B2), traced, then untraced
+        b2_dir, trace_dir = os.path.join(tmp, "b2"), os.path.join(tmp, "trace")
+        err, got, wall = run("signals-to-torch-feat-dir", map_path, cfg(precision="double"), b2_dir,
+                             "--batch-size", str(CLI_BATCH), "--num-workers", "4",
+                             "--profile", trace_dir)
+        split = [line for line in err.splitlines() if line.startswith("stages")]
+        check(got["stft_feats_int8"] == n_batches,
+              f"B2 launched {got['stft_feats_int8']} times for {n_batches} batches")
+        dev_ms, span = trace_device_ms(trace_dir)
+        busy = sum(dev_ms.values())
+        err2, got2, wall2 = run("signals-to-torch-feat-dir", map_path, cfg(precision="double"),
+                                os.path.join(tmp, "b2_untraced"), "--batch-size", str(CLI_BATCH),
+                                "--num-workers", "4", "--profile")
+        split2 = [line for line in err2.splitlines() if line.startswith("stages")]
+        check(got2["stft_feats_int8"] == n_batches, f"untraced run: B2 launched {got2}")
+        ref = STFTFrameComputer(dict(BANK), device=dev, precision="double", fft_mode="matmul",
+                                **MAIN)
+        check(ref._use_kernel(dev) is None, "the reference computer takes a kernel route")
+        own, plain_got = driven({}, lambda: {
+            u: ref.compute_batch(pcms[u][None], [pcms[u].size])[0][0].cpu().numpy() for u in utts})
+        check(not any(plain_got.values()), f"the plain reference launched {plain_got}")
+        err_b2, same = 0.0, True
+        for u in utts:
+            f = pt(b2_dir, u)
+            check(f.dtype == torch.float32 and f.device.type == "cpu" and f.shape == own[u].shape,
+                  f"{u}: {f.dtype} {f.device} {tuple(f.shape)} vs {own[u].shape}")
+            err_b2 = max(err_b2, np.abs(f.numpy() - own[u]).max())
+            same &= torch.equal(f, pt(os.path.join(tmp, "b2_untraced"), u))
+        print(f"signals-to-torch-feat-dir 'double' on {CLI_UTTS} wav files ({audio:.0f} s of "
+              f"audio), batches of {CLI_BATCH}, 4 reader threads, traced: {wall:.3f} s files to "
+              f"files, {audio / wall:.0f} audio-s/s; {split[-1] if split else 'no split'}; "
+              f"stft_feats_int8 x{got['stft_feats_int8']}; device busy {busy:.3f} ms "
+              f"({ {k: round(v, 3) for k, v in dev_ms.items()} }), idle "
+              f"{100 * (1 - busy / (wall * 1e3)):.1f}% of the run's wall, "
+              f"{100 * (1 - busy / span):.1f}% of the {span:.1f} ms its trace spans; untraced: "
+              f"{wall2:.3f} s, {audio / wall2:.0f} audio-s/s; "
+              f"{split2[-1] if split2 else 'no split'}; files vs each utterance alone on the "
+              f"plain digit route max abs {err_b2:.3e} (tol {TOL_INT8:g}); the two runs' files "
+              f"bitwise equal {same} [{smi}]", flush=True)
+        check(err_b2 <= TOL_INT8, f"signals-to-torch-feat-dir 'double' vs the plain route: {err_b2}")
+        check(same, "the traced and untraced runs wrote different files")
+        check(busy > 0, "the trace holds no device time")
+
+        # B1 with deltas and --vad-trim, against the same command on the
+        # plain path
+        extra = ["--batch-size", str(CLI_BATCH), "--num-workers", "4", "--postprocess",
+                 json.dumps([{"name": "deltas", "num_deltas": 2}]), "--vad-trim", "{}"]
+        b1_dir, plain_dir = os.path.join(tmp, "b1"), os.path.join(tmp, "plain")
+        _, got_b1, wall_b1 = run("signals-to-torch-feat-dir", map_path, cfg(fft_mode="pallas"),
+                                 b1_dir, *extra)
+        check(got_b1["stft_feats_rows"] == n_batches,
+              f"B1 launched {got_b1['stft_feats_rows']} times for {n_batches} batches")
+        _, got_plain, wall_plain = run("signals-to-torch-feat-dir", map_path,
+                                       cfg(fft_mode="matmul"), plain_dir, *extra)
+        check(not any(got_plain.values()), f"the plain path launched {got_plain}")
+        err_b1, kept, frames = 0.0, 0, 0
+        for u in utts:
+            a, b = pt(b1_dir, u).numpy(), pt(plain_dir, u).numpy()
+            check(a.shape == b.shape and a.shape[1] == 3 * 41, f"{u}: {a.shape} vs {b.shape}")
+            err_b1 = max(err_b1, np.abs(a - b).max(initial=0.0))  # all-silent: 0 rows
+            kept += a.shape[0]
+            frames += own[u].shape[0]
+        print(f"signals-to-torch-feat-dir fft_mode='pallas' (B1 x{got_b1['stft_feats_rows']}) "
+              f"+ deltas(2) + --vad-trim: {wall_b1:.3f} s ({audio / wall_b1:.0f} audio-s/s), "
+              f"plain path {wall_plain:.3f} s; VAD kept {kept} of {frames} frames; vs the plain "
+              f"path max abs {err_b1:.3e} (tol {TOL_FLOAT:g}) [{smi}]", flush=True)
+        check(err_b1 <= TOL_FLOAT, f"B1 CLI run vs the plain path: {err_b1}")
+        check(0 < kept < frames, f"--vad-trim kept {kept} of {frames} frames")
+
+        # Kaldi tables: a scp of the same files -> ark at 'double', then
+        # copy-feats-tables ark -> dir: -> ark
+        scp = os.path.join(tmp, "wav.scp")
+        with open(scp, "w") as f:
+            f.writelines(f"{u} {os.path.join(wav_dir, u + '.wav')}\n" for u in utts)
+        ark = os.path.join(tmp, "feats.ark")
+        _, got_k, wall_k = run("compute-feats-from-kaldi-tables", "scp:" + scp, "ark:" + ark,
+                               cfg(precision="double"), "--batch-size", str(CLI_BATCH))
+        check(got_k["stft_feats_int8"] == n_batches, f"compute-feats-from-kaldi-tables: {got_k}")
+        table = dict(kt.iter_table("ark:" + ark))
+        check(list(table) == utts, "the feature table's keys")
+        check(all(np.array_equal(table[u], pt(b2_dir, u).numpy()) for u in utts),
+              "compute-feats-from-kaldi-tables differs from signals-to-torch-feat-dir")
+        copy_dir, ark2 = os.path.join(tmp, "copied"), os.path.join(tmp, "copied.ark")
+        run("copy-feats-tables", "ark:" + ark, "dir:" + copy_dir)
+        run("copy-feats-tables", "dir:" + copy_dir, "ark:" + ark2)
+        copied = dict(kt.iter_table("ark:" + ark2))
+        check(list(copied) == utts and all(np.array_equal(copied[u], table[u]) for u in utts),
+              "copy-feats-tables ark -> dir -> ark is not bitwise")
+        print(f"compute-feats-from-kaldi-tables scp -> ark at 'double' (B2 "
+              f"x{got_k['stft_feats_int8']}): {wall_k:.3f} s, {audio / wall_k:.0f} audio-s/s, "
+              f"bitwise equal to the .pt files; copy-feats-tables ark -> dir -> ark bitwise "
+              f"[{smi}]", flush=True)
+
+        # torch-feat-dir-to-signals on 8 of the files, 4 iterations: its
+        # wavs against feats_to_signal on the same buckets of 16 rows (the
+        # command's batches), and the distance from float64 on the CPU
+        inv_src, inv_out = os.path.join(tmp, "inv_feats"), os.path.join(tmp, "inv_wavs")
+        os.makedirs(inv_src)
+        for u in utts[:8]:
+            shutil.copy(os.path.join(b2_dir, u + ".pt"), inv_src)
+        _, _, wall_inv = run("torch-feat-dir-to-signals", inv_src, cfg(), inv_out,
+                             "--n-iters", "4")
+        inv_comp = STFTFrameComputer(dict(BANK), device=dev, **MAIN)
+        f64 = STFTFrameComputer(dict(BANK), **{**MAIN, "dtype": "float64"}, device="cpu")
+        shift = f64.frame_shift
+        buckets = {}
+        for u in utts[:8]:
+            f = pt(b2_dir, u).numpy()
+            buckets.setdefault(1 << (f.shape[0] - 1).bit_length(), []).append((u, f))
+        same_inv, err64 = True, 0.0
+        for t_pad, group in buckets.items():
+            batch = np.zeros((16, t_pad, 41), np.float32)
+            counts = np.zeros(16, np.int32)
+            for i, (_, f) in enumerate(group):
+                batch[i, : f.shape[0]], counts[i] = f, f.shape[0]
+            ys = invert.feats_to_signal(
+                torch.from_numpy(batch).to(dev), inv_comp, n_iters=4, length=t_pad * shift,
+                lengths=torch.from_numpy(counts).to(dev)).cpu().numpy()
+            for i, (u, f) in enumerate(group):
+                with wave.open(os.path.join(inv_out, u + ".wav")) as w:
+                    check(w.getframerate() == RATE, f"{u}.wav: rate {w.getframerate()}")
+                    got_pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+                want = np.clip(np.round(ys[i, : f.shape[0] * shift]), -32767, 32767)
+                same_inv &= got_pcm.shape == want.shape and np.array_equal(got_pcm, want)
+                y64 = invert.feats_to_signal(torch.from_numpy(f).double()[None], f64, n_iters=4)
+                pcm64 = np.clip(np.round(y64[0].numpy()), -32767, 32767)
+                err64 = max(err64, np.abs(got_pcm - pcm64).max() / 32768.0)
+        print(f"torch-feat-dir-to-signals 8 files, 4 iterations: {wall_inv:.3f} s; wavs bitwise "
+              f"equal to feats_to_signal on the card on the same batches: {same_inv}; max abs "
+              f"from float64 feats_to_signal (CPU) {err64:.3e} of int16 full scale [{smi}]",
+              flush=True)
+        check(same_inv, "torch-feat-dir-to-signals differs from feats_to_signal")
+
+        # FeatureCorpus at 'double', then in feature-file mode over the .pt dir
+        utt2path = [(u, os.path.join(wav_dir, u + ".wav")) for u in utts]
+        t0 = time.perf_counter()
+        batches, got_c = driven(counted, lambda: list(FeatureCorpus(
+            json.loads(cfg(precision="double")), utt2path, num_workers=4)))
+        wall_c = time.perf_counter() - t0
+        check(got_c["stft_feats_int8"] == len(batches) == -(-CLI_UTTS // 32),
+              f"FeatureCorpus: {len(batches)} batches, launches {got_c}")
+        seen = {u: f for us, fs in batches for u, f in zip(us, fs)}
+        check(sorted(seen) == utts and all(
+            isinstance(seen[u], np.ndarray) and np.array_equal(seen[u], pt(b2_dir, u).numpy())
+            for u in utts), "FeatureCorpus differs from the CLI's files")
+        back = {u: f for us, fs in FeatureCorpus(
+            None, [(u, os.path.join(b2_dir, u + ".pt")) for u in utts], batch_size=64)
+            for u, f in zip(us, fs)}
+        check(sorted(back) == utts and all(
+            np.array_equal(back[u], pt(b2_dir, u).double().numpy()) for u in utts),
+            "FeatureCorpus feature-file mode differs from the files")
+        print(f"FeatureCorpus 'double' ({len(batches)} batches of 32, 4 reader threads, "
+              f"stft_feats_int8 x{got_c['stft_feats_int8']}): {wall_c:.3f} s, "
+              f"{audio / wall_c:.0f} audio-s/s, bitwise equal to the CLI's files; feature-file "
+              f"mode reads them back bitwise [{smi}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return counted
 
 

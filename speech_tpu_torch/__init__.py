@@ -11,7 +11,9 @@ package, so each counterpart is easy to find.  Entry points run on
 from . import alias, config, scales, utils  # noqa: F401
 from . import filters, compute  # noqa: F401
 from . import ops  # noqa: F401
-from . import nn, parallel  # noqa: F401
+from . import corpus, nn, parallel, profiling  # noqa: F401
 from . import models, serve  # noqa: F401
+
+# imported on use, as in the JAX package: speech_tpu_torch.command_line
 
 __version__ = "0.1.0"

@@ -161,7 +161,8 @@ def _frontend_dim(frontend) -> int:
 def _frontend_device(frontend) -> torch.device:
     for t in list(frontend.parameters()) + list(frontend.buffers()):
         return t.device
-    return resolve_device(None)
+    # a frontend with no tensors (FeatureFrontend without statistics)
+    return resolve_device(getattr(frontend, "_device", None))
 
 
 class _FrontendModel(torch.nn.Module):

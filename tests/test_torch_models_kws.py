@@ -245,6 +245,16 @@ def test_freeze_frontend_leaves_its_gradients_none():
         assert np.abs(_np(p.grad)).max() > 0, name
 
 
+def test_feature_frontend_without_statistics_keeps_its_device():
+    """A FeatureFrontend with no mean/std holds no tensor: the model takes
+    the frontend's own device (here the CPU), not the default GPU."""
+    tm = tkws.KWSModel(tnn.FeatureFrontend(6, device="cpu"), num_classes=2, channels=(4,))
+    assert tm.device == torch.device("cpu")
+    assert {p.device.type for p in tm.parameters()} == {"cpu"}
+    feats = np.random.RandomState(9).randn(2, 7, 6).astype(np.float32)
+    assert tuple(tm(feats, np.array([7, 4])).shape) == (2, 2)
+
+
 def test_junk_past_length_does_not_leak():
     _, _, _, tm = _pair()
     signals, lengths, _ = _tone_batch(np.random.RandomState(5), 4)

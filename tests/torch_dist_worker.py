@@ -18,12 +18,14 @@ data x filter sharded training step of the STFT frontend,
 :func:`train_step`; world sizes 2 and 4), ``models_train`` (the
 data-parallel step of a KWS model, :func:`models_train_step`),
 ``serve_pool`` (a ``StreamPool`` with its slots over the data axis,
-:func:`serve_pool`) or ``bench`` (:func:`extract_bench`, GPUs only), and ``<device>`` is ``cpu`` (gloo; the default) or ``cuda``
+:func:`serve_pool`), ``cli`` (``signals-to-torch-feat-dir`` on a mesh,
+:func:`cli_extract`) or ``bench`` (:func:`extract_bench`, GPUs only), and ``<device>`` is ``cpu`` (gloo; the default) or ``cuda``
 (NCCL, one card a rank: ``tools/torch_multichip.py`` runs the same cases
 on four cards).
 """
 
 import importlib
+import json
 import os
 import subprocess
 import sys
@@ -419,6 +421,83 @@ def extract_bench(world: int, device: str = "cuda") -> dict:
     return {"bench_ms": _np(ms), "bench_launches": _np(launches), "bench_equal": _np(equal)}
 
 
+CLI_CFG = {
+    "name": "stft",
+    "bank": {"name": "fbank", "num_filts": 10, "sampling_rate": 8000},
+    "frame_length_ms": 25,
+    "frame_shift_ms": 10,
+    "dtype": "float64",
+}
+
+
+def write_cli_corpus(directory: str) -> str:
+    """Eleven random 16-bit wavs of 0.2-1 s at 8 kHz (seeded) in
+    ``directory`` and their ``<utt> <path>`` map; returns the map's path."""
+    import wave
+
+    rng = np.random.RandomState(20261017)
+    os.makedirs(directory, exist_ok=True)
+    map_path = os.path.join(directory, "map.txt")
+    with open(map_path, "w") as mf:
+        for i in range(11):
+            path = os.path.join(directory, f"utt{i:02d}.wav")
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(8000)
+                w.writeframes((rng.randn(rng.randint(1600, 8000)) * 1000).astype(np.int16).tobytes())
+            mf.write(f"utt{i:02d} {path}\n")
+    return map_path
+
+
+def cli_extract(world: int, device: str = "cpu") -> dict:
+    """``signals-to-torch-feat-dir`` (:data:`CLI_CFG`, batches of 4) with
+    every rank of the group running the command on the same map, each into
+    a directory and manifest of its own: every rank's return code, rank 0's
+    files in name order (their frame counts and rows), and how many files
+    and manifest lines the other ranks wrote."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from speech_tpu_torch import command_line
+
+    rank = dist.get_rank()
+    tmp = [tempfile.mkdtemp() if rank == 0 else None]
+    dist.broadcast_object_list(tmp, src=0)
+    tmp = tmp[0]
+    if rank == 0:
+        write_cli_corpus(os.path.join(tmp, "corpus"))
+    dist.barrier()
+    out = os.path.join(tmp, f"out{rank}")
+    manifest = os.path.join(tmp, f"manifest{rank}")
+    rc = command_line.signals_to_torch_feat_dir(
+        [os.path.join(tmp, "corpus", "map.txt"), json.dumps({**CLI_CFG, "device": device}), out,
+         "--batch-size", "4", "--manifest", manifest]
+    )
+    rcs = [None] * world
+    dist.all_gather_object(rcs, rc)
+    dist.barrier()
+    r = {}
+    if rank == 0:
+        names = sorted(os.listdir(out))
+        feats = [torch.load(os.path.join(out, n)).numpy() for n in names]
+        r = {"rcs": np.array(rcs), "names": np.array(names),
+             "frames": np.array([f.shape[0] for f in feats]), "feats": np.concatenate(feats)}
+        others = 0
+        for other in range(1, world):
+            others += len(os.listdir(os.path.join(tmp, f"out{other}")))
+            with open(os.path.join(tmp, f"manifest{other}")) as f:
+                others += sum(1 for line in f if line.strip())
+        r["others_wrote"] = np.array(others)
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(tmp)
+    return r
+
+
 def launch(world: int, out_dir, cases: str = "parallel", device: str = "cpu",
            strict: bool = True):
     """Start one process a rank of this script at world size ``world``
@@ -463,6 +542,7 @@ CASES = {
     "train": lambda world, device: train_step(inputs()["train"], device),
     "models_train": models_train_step,
     "serve_pool": serve_pool,
+    "cli": cli_extract,
     "bench": extract_bench,
 }
 
