@@ -130,11 +130,33 @@ Phases (each passes or the script exits non-zero):
     phase 12 prints its float32 one; and
     ``FeatureCorpus`` at 'double' bitwise equal to the files, which its
     feature-file mode reads back bitwise;
-20. print the kernels line and, last, the device line.
+20. the library store (``speech_tpu_torch.aot``): a fresh process
+    (``chip_smoke.py --cold-start-child``) on an empty store with nvcc and
+    g++ reachable builds the three kernel libraries and shorten (each
+    build's seconds; stats: 4 misses, 0 hits) and runs the main path's
+    batch through ``ShardedExtractor(aot_dir=)`` at 'double' (B2) and
+    ``fft_mode="pallas"`` (B1), reads a ``.sph`` file and answers a
+    ``FeatureServer(aot_dir=)`` burst of 16 requests: its seconds from
+    the spawn to its first feature are the cold start; the same process
+    on that store with ``PATH`` and ``CUDA_HOME`` an empty directory (no
+    compiler: any build would raise) is the warm start (0 misses, 0
+    errors, 0 fallbacks, 4 hits); both children's features are bitwise
+    equal to this process's on the same routes and batch.  Then phase
+    19's 'double' command with ``--precompile --aot-dir``, its run in a
+    fresh process with no compiler (files bitwise equal to phase 19's),
+    and ``--aot-prune`` on a planted orphan;
+21. the compatibility layer (``speech_tpu_torch.torch``) on the card:
+    ``PyTorchSTFTFrameComputer`` of the main config on one 15 s signal
+    within TOL_FLOAT of ``compute_full``, with finite gradients for its
+    window and weights; ``PyTorchSIFrameComputer`` of gammatone-40 within
+    TOL_FLOAT of the SI computer; ``log32`` within 2 ulp of ``torch.log``
+    over [1e-6, 1e6].  ``speech_tpu_torch.vis`` is not run (the machine has
+    no matplotlib);
+22. print the kernels line and, last, the device line.
 
 Every launch counter is set to 0 just before each driven path (phases 5,
-15, 16, 17, 18 and 19) and read just after; the kernels line's launches
-are their sums.
+15, 16, 17, 18, 19 and 20) and read just after; the kernels line's
+launches are their sums.
 
 B2 and B4 also run on banks wider than one filter group (phases 3-4):
 B2 at 1,489 and 2,978 filters, both tiers, on 16 x 15 s.
@@ -142,6 +164,7 @@ B2 at 1,489 and 2,978 filters, both tiers, on 16 x 15 s.
 It imports torch, numpy and ``speech_tpu_torch`` only.
 """
 
+import atexit
 import contextlib
 import glob
 import json
@@ -401,6 +424,13 @@ def main():
     from speech_tpu_torch.ops import resample
     from speech_tpu_torch.ops import stft_kernels as K
     from speech_tpu_torch.ops.vad import energy_vad
+
+    # the CLIs move the process's default library store to
+    # $TORCH_EXTENSIONS_DIR/speech_tpu_torch: keep it in this run's
+    # temporary directory (phases 19-20 write their corpus and stores there)
+    run_dir = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, run_dir, ignore_errors=True)
+    os.environ["TORCH_EXTENSIONS_DIR"] = os.path.join(run_dir, "torch_extensions")
 
     # 1. build
     t0 = time.perf_counter()
@@ -996,12 +1026,17 @@ def main():
     for name, count in frontend_phase(dev, smi).items():
         launches[name] = launches.get(name, 0) + count
 
-    # 17. the model families; 18. serving; 19. the corpus CLIs
-    for phase in (models_phase, serving_phase, cli_phase):
-        for name, count in phase(dev, smi).items():
+    # 17. the model families; 18. serving; 19. the corpus CLIs; 20. the
+    # library store's cold and warm starts; 21. the compatibility layer
+    phases = [lambda: models_phase(dev, smi), lambda: serving_phase(dev, smi),
+              lambda: cli_phase(dev, smi, run_dir),
+              lambda: cold_start_phase(dev, smi, host, run_dir)]
+    for phase in phases:
+        for name, count in phase().items():
             launches[name] = launches.get(name, 0) + count
+    compat_phase(dev, smi, host)
 
-    # 20. the kernels line, the card, the device line
+    # 22. the kernels line, the card, the device line
     kernels = []
     for name, e in entries.items():
         bound, bound_by = bound_ms(e)
@@ -1900,9 +1935,11 @@ def trace_device_ms(trace_dir):
     return out, span
 
 
-def cli_phase(dev, smi):
+def cli_phase(dev, smi, tmp):
     """Phase 19: the corpus CLIs through ``command_line.main``, in process,
-    on a corpus of wav files.  Returns the launches of the driven paths."""
+    on a corpus of wav files written under ``tmp`` (``map.txt``, ``wavs/``;
+    the 'double' run's files in ``b2/``, which phase 20 reads; the caller
+    removes ``tmp``).  Returns the launches of the driven paths."""
     import io
 
     import torch
@@ -1915,7 +1952,6 @@ def cli_phase(dev, smi):
 
     counted = {}
     rng = np.random.RandomState(19)
-    tmp = tempfile.mkdtemp()
     main_cfg = {"name": "stft", "bank": dict(BANK), **MAIN}
 
     def cfg(**kw):
@@ -1934,194 +1970,451 @@ def cli_phase(dev, smi):
     def pt(directory, utt):
         return torch.load(os.path.join(directory, utt + ".pt"))
 
-    try:
-        # 256 ragged 1-15 s int16 wavs of noise with 1-3 digitally silent
-        # gaps of 0.2-1 s each (so that --vad-trim drops frames; no frame
-        # has an energy near its threshold)
-        wav_dir = os.path.join(tmp, "wavs")
-        os.makedirs(wav_dir)
-        map_path = os.path.join(tmp, "map.txt")
-        pcms = {}
-        with open(map_path, "w") as mf:
-            for i in range(CLI_UTTS):
-                n = rng.randint(RATE, SECONDS * RATE + 1)
-                pcm = np.clip(rng.randn(n) * 3000, -32767, 32767).astype(np.int16)
-                for _ in range(rng.randint(1, 4)):
-                    g = rng.randint(RATE // 5, RATE + 1)
-                    start = rng.randint(0, max(n - g, 1))
-                    pcm[start: start + g] = 0
-                utt = f"utt{i:03d}"
-                path = os.path.join(wav_dir, utt + ".wav")
-                with wave.open(path, "wb") as w:
-                    w.setnchannels(1)
-                    w.setsampwidth(2)
-                    w.setframerate(RATE)
-                    w.writeframes(pcm.tobytes())
-                mf.write(f"{utt} {path}\n")
-                pcms[utt] = pcm
-        utts = sorted(pcms)
-        audio = sum(p.size for p in pcms.values()) / RATE
-        n_batches = -(-CLI_UTTS // CLI_BATCH)
+    # 256 ragged 1-15 s int16 wavs of noise with 1-3 digitally silent
+    # gaps of 0.2-1 s each (so that --vad-trim drops frames; no frame
+    # has an energy near its threshold)
+    wav_dir = os.path.join(tmp, "wavs")
+    os.makedirs(wav_dir)
+    map_path = os.path.join(tmp, "map.txt")
+    pcms = {}
+    with open(map_path, "w") as mf:
+        for i in range(CLI_UTTS):
+            n = rng.randint(RATE, SECONDS * RATE + 1)
+            pcm = np.clip(rng.randn(n) * 3000, -32767, 32767).astype(np.int16)
+            for _ in range(rng.randint(1, 4)):
+                g = rng.randint(RATE // 5, RATE + 1)
+                start = rng.randint(0, max(n - g, 1))
+                pcm[start: start + g] = 0
+            utt = f"utt{i:03d}"
+            path = os.path.join(wav_dir, utt + ".wav")
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(RATE)
+                w.writeframes(pcm.tobytes())
+            mf.write(f"{utt} {path}\n")
+            pcms[utt] = pcm
+    utts = sorted(pcms)
+    audio = sum(p.size for p in pcms.values()) / RATE
+    n_batches = -(-CLI_UTTS // CLI_BATCH)
 
-        # signals-to-torch-feat-dir at 'double' (B2), traced, then untraced
-        b2_dir, trace_dir = os.path.join(tmp, "b2"), os.path.join(tmp, "trace")
-        err, got, wall = run("signals-to-torch-feat-dir", map_path, cfg(precision="double"), b2_dir,
-                             "--batch-size", str(CLI_BATCH), "--num-workers", "4",
-                             "--profile", trace_dir)
-        split = [line for line in err.splitlines() if line.startswith("stages")]
-        check(got["stft_feats_int8"] == n_batches,
-              f"B2 launched {got['stft_feats_int8']} times for {n_batches} batches")
-        dev_ms, span = trace_device_ms(trace_dir)
-        busy = sum(dev_ms.values())
-        err2, got2, wall2 = run("signals-to-torch-feat-dir", map_path, cfg(precision="double"),
-                                os.path.join(tmp, "b2_untraced"), "--batch-size", str(CLI_BATCH),
-                                "--num-workers", "4", "--profile")
-        split2 = [line for line in err2.splitlines() if line.startswith("stages")]
-        check(got2["stft_feats_int8"] == n_batches, f"untraced run: B2 launched {got2}")
-        ref = STFTFrameComputer(dict(BANK), device=dev, precision="double", fft_mode="matmul",
-                                **MAIN)
-        check(ref._use_kernel(dev) is None, "the reference computer takes a kernel route")
-        own, plain_got = driven({}, lambda: {
-            u: ref.compute_batch(pcms[u][None], [pcms[u].size])[0][0].cpu().numpy() for u in utts})
-        check(not any(plain_got.values()), f"the plain reference launched {plain_got}")
-        err_b2, same = 0.0, True
-        for u in utts:
-            f = pt(b2_dir, u)
-            check(f.dtype == torch.float32 and f.device.type == "cpu" and f.shape == own[u].shape,
-                  f"{u}: {f.dtype} {f.device} {tuple(f.shape)} vs {own[u].shape}")
-            err_b2 = max(err_b2, np.abs(f.numpy() - own[u]).max())
-            same &= torch.equal(f, pt(os.path.join(tmp, "b2_untraced"), u))
-        print(f"signals-to-torch-feat-dir 'double' on {CLI_UTTS} wav files ({audio:.0f} s of "
-              f"audio), batches of {CLI_BATCH}, 4 reader threads, traced: {wall:.3f} s files to "
-              f"files, {audio / wall:.0f} audio-s/s; {split[-1] if split else 'no split'}; "
-              f"stft_feats_int8 x{got['stft_feats_int8']}; device busy {busy:.3f} ms "
-              f"({ {k: round(v, 3) for k, v in dev_ms.items()} }), idle "
-              f"{100 * (1 - busy / (wall * 1e3)):.1f}% of the run's wall, "
-              f"{100 * (1 - busy / span):.1f}% of the {span:.1f} ms its trace spans; untraced: "
-              f"{wall2:.3f} s, {audio / wall2:.0f} audio-s/s; "
-              f"{split2[-1] if split2 else 'no split'}; files vs each utterance alone on the "
-              f"plain digit route max abs {err_b2:.3e} (tol {TOL_INT8:g}); the two runs' files "
-              f"bitwise equal {same} [{smi}]", flush=True)
-        check(err_b2 <= TOL_INT8, f"signals-to-torch-feat-dir 'double' vs the plain route: {err_b2}")
-        check(same, "the traced and untraced runs wrote different files")
-        check(busy > 0, "the trace holds no device time")
+    # signals-to-torch-feat-dir at 'double' (B2), traced, then untraced
+    b2_dir, trace_dir = os.path.join(tmp, "b2"), os.path.join(tmp, "trace")
+    err, got, wall = run("signals-to-torch-feat-dir", map_path, cfg(precision="double"), b2_dir,
+                         "--batch-size", str(CLI_BATCH), "--num-workers", "4",
+                         "--profile", trace_dir)
+    split = [line for line in err.splitlines() if line.startswith("stages")]
+    check(got["stft_feats_int8"] == n_batches,
+          f"B2 launched {got['stft_feats_int8']} times for {n_batches} batches")
+    dev_ms, span = trace_device_ms(trace_dir)
+    busy = sum(dev_ms.values())
+    err2, got2, wall2 = run("signals-to-torch-feat-dir", map_path, cfg(precision="double"),
+                            os.path.join(tmp, "b2_untraced"), "--batch-size", str(CLI_BATCH),
+                            "--num-workers", "4", "--profile")
+    split2 = [line for line in err2.splitlines() if line.startswith("stages")]
+    check(got2["stft_feats_int8"] == n_batches, f"untraced run: B2 launched {got2}")
+    ref = STFTFrameComputer(dict(BANK), device=dev, precision="double", fft_mode="matmul",
+                            **MAIN)
+    check(ref._use_kernel(dev) is None, "the reference computer takes a kernel route")
+    own, plain_got = driven({}, lambda: {
+        u: ref.compute_batch(pcms[u][None], [pcms[u].size])[0][0].cpu().numpy() for u in utts})
+    check(not any(plain_got.values()), f"the plain reference launched {plain_got}")
+    err_b2, same = 0.0, True
+    for u in utts:
+        f = pt(b2_dir, u)
+        check(f.dtype == torch.float32 and f.device.type == "cpu" and f.shape == own[u].shape,
+              f"{u}: {f.dtype} {f.device} {tuple(f.shape)} vs {own[u].shape}")
+        err_b2 = max(err_b2, np.abs(f.numpy() - own[u]).max())
+        same &= torch.equal(f, pt(os.path.join(tmp, "b2_untraced"), u))
+    print(f"signals-to-torch-feat-dir 'double' on {CLI_UTTS} wav files ({audio:.0f} s of "
+          f"audio), batches of {CLI_BATCH}, 4 reader threads, traced: {wall:.3f} s files to "
+          f"files, {audio / wall:.0f} audio-s/s; {split[-1] if split else 'no split'}; "
+          f"stft_feats_int8 x{got['stft_feats_int8']}; device busy {busy:.3f} ms "
+          f"({ {k: round(v, 3) for k, v in dev_ms.items()} }), idle "
+          f"{100 * (1 - busy / (wall * 1e3)):.1f}% of the run's wall, "
+          f"{100 * (1 - busy / span):.1f}% of the {span:.1f} ms its trace spans; untraced: "
+          f"{wall2:.3f} s, {audio / wall2:.0f} audio-s/s; "
+          f"{split2[-1] if split2 else 'no split'}; files vs each utterance alone on the "
+          f"plain digit route max abs {err_b2:.3e} (tol {TOL_INT8:g}); the two runs' files "
+          f"bitwise equal {same} [{smi}]", flush=True)
+    check(err_b2 <= TOL_INT8, f"signals-to-torch-feat-dir 'double' vs the plain route: {err_b2}")
+    check(same, "the traced and untraced runs wrote different files")
+    check(busy > 0, "the trace holds no device time")
 
-        # B1 with deltas and --vad-trim, against the same command on the
-        # plain path
-        extra = ["--batch-size", str(CLI_BATCH), "--num-workers", "4", "--postprocess",
-                 json.dumps([{"name": "deltas", "num_deltas": 2}]), "--vad-trim", "{}"]
-        b1_dir, plain_dir = os.path.join(tmp, "b1"), os.path.join(tmp, "plain")
-        _, got_b1, wall_b1 = run("signals-to-torch-feat-dir", map_path, cfg(fft_mode="pallas"),
-                                 b1_dir, *extra)
-        check(got_b1["stft_feats_rows"] == n_batches,
-              f"B1 launched {got_b1['stft_feats_rows']} times for {n_batches} batches")
-        _, got_plain, wall_plain = run("signals-to-torch-feat-dir", map_path,
-                                       cfg(fft_mode="matmul"), plain_dir, *extra)
-        check(not any(got_plain.values()), f"the plain path launched {got_plain}")
-        err_b1, kept, frames = 0.0, 0, 0
-        for u in utts:
-            a, b = pt(b1_dir, u).numpy(), pt(plain_dir, u).numpy()
-            check(a.shape == b.shape and a.shape[1] == 3 * 41, f"{u}: {a.shape} vs {b.shape}")
-            err_b1 = max(err_b1, np.abs(a - b).max(initial=0.0))  # all-silent: 0 rows
-            kept += a.shape[0]
-            frames += own[u].shape[0]
-        print(f"signals-to-torch-feat-dir fft_mode='pallas' (B1 x{got_b1['stft_feats_rows']}) "
-              f"+ deltas(2) + --vad-trim: {wall_b1:.3f} s ({audio / wall_b1:.0f} audio-s/s), "
-              f"plain path {wall_plain:.3f} s; VAD kept {kept} of {frames} frames; vs the plain "
-              f"path max abs {err_b1:.3e} (tol {TOL_FLOAT:g}) [{smi}]", flush=True)
-        check(err_b1 <= TOL_FLOAT, f"B1 CLI run vs the plain path: {err_b1}")
-        check(0 < kept < frames, f"--vad-trim kept {kept} of {frames} frames")
+    # B1 with deltas and --vad-trim, against the same command on the
+    # plain path
+    extra = ["--batch-size", str(CLI_BATCH), "--num-workers", "4", "--postprocess",
+             json.dumps([{"name": "deltas", "num_deltas": 2}]), "--vad-trim", "{}"]
+    b1_dir, plain_dir = os.path.join(tmp, "b1"), os.path.join(tmp, "plain")
+    _, got_b1, wall_b1 = run("signals-to-torch-feat-dir", map_path, cfg(fft_mode="pallas"),
+                             b1_dir, *extra)
+    check(got_b1["stft_feats_rows"] == n_batches,
+          f"B1 launched {got_b1['stft_feats_rows']} times for {n_batches} batches")
+    _, got_plain, wall_plain = run("signals-to-torch-feat-dir", map_path,
+                                   cfg(fft_mode="matmul"), plain_dir, *extra)
+    check(not any(got_plain.values()), f"the plain path launched {got_plain}")
+    err_b1, kept, frames = 0.0, 0, 0
+    for u in utts:
+        a, b = pt(b1_dir, u).numpy(), pt(plain_dir, u).numpy()
+        check(a.shape == b.shape and a.shape[1] == 3 * 41, f"{u}: {a.shape} vs {b.shape}")
+        err_b1 = max(err_b1, np.abs(a - b).max(initial=0.0))  # all-silent: 0 rows
+        kept += a.shape[0]
+        frames += own[u].shape[0]
+    print(f"signals-to-torch-feat-dir fft_mode='pallas' (B1 x{got_b1['stft_feats_rows']}) "
+          f"+ deltas(2) + --vad-trim: {wall_b1:.3f} s ({audio / wall_b1:.0f} audio-s/s), "
+          f"plain path {wall_plain:.3f} s; VAD kept {kept} of {frames} frames; vs the plain "
+          f"path max abs {err_b1:.3e} (tol {TOL_FLOAT:g}) [{smi}]", flush=True)
+    check(err_b1 <= TOL_FLOAT, f"B1 CLI run vs the plain path: {err_b1}")
+    check(0 < kept < frames, f"--vad-trim kept {kept} of {frames} frames")
 
-        # Kaldi tables: a scp of the same files -> ark at 'double', then
-        # copy-feats-tables ark -> dir: -> ark
-        scp = os.path.join(tmp, "wav.scp")
-        with open(scp, "w") as f:
-            f.writelines(f"{u} {os.path.join(wav_dir, u + '.wav')}\n" for u in utts)
-        ark = os.path.join(tmp, "feats.ark")
-        _, got_k, wall_k = run("compute-feats-from-kaldi-tables", "scp:" + scp, "ark:" + ark,
-                               cfg(precision="double"), "--batch-size", str(CLI_BATCH))
-        check(got_k["stft_feats_int8"] == n_batches, f"compute-feats-from-kaldi-tables: {got_k}")
-        table = dict(kt.iter_table("ark:" + ark))
-        check(list(table) == utts, "the feature table's keys")
-        check(all(np.array_equal(table[u], pt(b2_dir, u).numpy()) for u in utts),
-              "compute-feats-from-kaldi-tables differs from signals-to-torch-feat-dir")
-        copy_dir, ark2 = os.path.join(tmp, "copied"), os.path.join(tmp, "copied.ark")
-        run("copy-feats-tables", "ark:" + ark, "dir:" + copy_dir)
-        run("copy-feats-tables", "dir:" + copy_dir, "ark:" + ark2)
-        copied = dict(kt.iter_table("ark:" + ark2))
-        check(list(copied) == utts and all(np.array_equal(copied[u], table[u]) for u in utts),
-              "copy-feats-tables ark -> dir -> ark is not bitwise")
-        print(f"compute-feats-from-kaldi-tables scp -> ark at 'double' (B2 "
-              f"x{got_k['stft_feats_int8']}): {wall_k:.3f} s, {audio / wall_k:.0f} audio-s/s, "
-              f"bitwise equal to the .pt files; copy-feats-tables ark -> dir -> ark bitwise "
-              f"[{smi}]", flush=True)
+    # Kaldi tables: a scp of the same files -> ark at 'double', then
+    # copy-feats-tables ark -> dir: -> ark
+    scp = os.path.join(tmp, "wav.scp")
+    with open(scp, "w") as f:
+        f.writelines(f"{u} {os.path.join(wav_dir, u + '.wav')}\n" for u in utts)
+    ark = os.path.join(tmp, "feats.ark")
+    _, got_k, wall_k = run("compute-feats-from-kaldi-tables", "scp:" + scp, "ark:" + ark,
+                           cfg(precision="double"), "--batch-size", str(CLI_BATCH))
+    check(got_k["stft_feats_int8"] == n_batches, f"compute-feats-from-kaldi-tables: {got_k}")
+    table = dict(kt.iter_table("ark:" + ark))
+    check(list(table) == utts, "the feature table's keys")
+    check(all(np.array_equal(table[u], pt(b2_dir, u).numpy()) for u in utts),
+          "compute-feats-from-kaldi-tables differs from signals-to-torch-feat-dir")
+    copy_dir, ark2 = os.path.join(tmp, "copied"), os.path.join(tmp, "copied.ark")
+    run("copy-feats-tables", "ark:" + ark, "dir:" + copy_dir)
+    run("copy-feats-tables", "dir:" + copy_dir, "ark:" + ark2)
+    copied = dict(kt.iter_table("ark:" + ark2))
+    check(list(copied) == utts and all(np.array_equal(copied[u], table[u]) for u in utts),
+          "copy-feats-tables ark -> dir -> ark is not bitwise")
+    print(f"compute-feats-from-kaldi-tables scp -> ark at 'double' (B2 "
+          f"x{got_k['stft_feats_int8']}): {wall_k:.3f} s, {audio / wall_k:.0f} audio-s/s, "
+          f"bitwise equal to the .pt files; copy-feats-tables ark -> dir -> ark bitwise "
+          f"[{smi}]", flush=True)
 
-        # torch-feat-dir-to-signals on 8 of the files, 4 iterations: its
-        # wavs against feats_to_signal on the same buckets of 16 rows (the
-        # command's batches), and the distance from float64 on the CPU
-        inv_src, inv_out = os.path.join(tmp, "inv_feats"), os.path.join(tmp, "inv_wavs")
-        os.makedirs(inv_src)
-        for u in utts[:8]:
-            shutil.copy(os.path.join(b2_dir, u + ".pt"), inv_src)
-        _, _, wall_inv = run("torch-feat-dir-to-signals", inv_src, cfg(), inv_out,
-                             "--n-iters", "4")
-        inv_comp = STFTFrameComputer(dict(BANK), device=dev, **MAIN)
-        f64 = STFTFrameComputer(dict(BANK), **{**MAIN, "dtype": "float64"}, device="cpu")
-        shift = f64.frame_shift
-        buckets = {}
-        for u in utts[:8]:
-            f = pt(b2_dir, u).numpy()
-            buckets.setdefault(1 << (f.shape[0] - 1).bit_length(), []).append((u, f))
-        same_inv, err64 = True, 0.0
-        for t_pad, group in buckets.items():
-            batch = np.zeros((16, t_pad, 41), np.float32)
-            counts = np.zeros(16, np.int32)
-            for i, (_, f) in enumerate(group):
-                batch[i, : f.shape[0]], counts[i] = f, f.shape[0]
-            ys = invert.feats_to_signal(
-                torch.from_numpy(batch).to(dev), inv_comp, n_iters=4, length=t_pad * shift,
-                lengths=torch.from_numpy(counts).to(dev)).cpu().numpy()
-            for i, (u, f) in enumerate(group):
-                with wave.open(os.path.join(inv_out, u + ".wav")) as w:
-                    check(w.getframerate() == RATE, f"{u}.wav: rate {w.getframerate()}")
-                    got_pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
-                want = np.clip(np.round(ys[i, : f.shape[0] * shift]), -32767, 32767)
-                same_inv &= got_pcm.shape == want.shape and np.array_equal(got_pcm, want)
-                y64 = invert.feats_to_signal(torch.from_numpy(f).double()[None], f64, n_iters=4)
-                pcm64 = np.clip(np.round(y64[0].numpy()), -32767, 32767)
-                err64 = max(err64, np.abs(got_pcm - pcm64).max() / 32768.0)
-        print(f"torch-feat-dir-to-signals 8 files, 4 iterations: {wall_inv:.3f} s; wavs bitwise "
-              f"equal to feats_to_signal on the card on the same batches: {same_inv}; max abs "
-              f"from float64 feats_to_signal (CPU) {err64:.3e} of int16 full scale [{smi}]",
-              flush=True)
-        check(same_inv, "torch-feat-dir-to-signals differs from feats_to_signal")
+    # torch-feat-dir-to-signals on 8 of the files, 4 iterations: its
+    # wavs against feats_to_signal on the same buckets of 16 rows (the
+    # command's batches), and the distance from float64 on the CPU
+    inv_src, inv_out = os.path.join(tmp, "inv_feats"), os.path.join(tmp, "inv_wavs")
+    os.makedirs(inv_src)
+    for u in utts[:8]:
+        shutil.copy(os.path.join(b2_dir, u + ".pt"), inv_src)
+    _, _, wall_inv = run("torch-feat-dir-to-signals", inv_src, cfg(), inv_out,
+                         "--n-iters", "4")
+    inv_comp = STFTFrameComputer(dict(BANK), device=dev, **MAIN)
+    f64 = STFTFrameComputer(dict(BANK), **{**MAIN, "dtype": "float64"}, device="cpu")
+    shift = f64.frame_shift
+    buckets = {}
+    for u in utts[:8]:
+        f = pt(b2_dir, u).numpy()
+        buckets.setdefault(1 << (f.shape[0] - 1).bit_length(), []).append((u, f))
+    same_inv, err64 = True, 0.0
+    for t_pad, group in buckets.items():
+        batch = np.zeros((16, t_pad, 41), np.float32)
+        counts = np.zeros(16, np.int32)
+        for i, (_, f) in enumerate(group):
+            batch[i, : f.shape[0]], counts[i] = f, f.shape[0]
+        ys = invert.feats_to_signal(
+            torch.from_numpy(batch).to(dev), inv_comp, n_iters=4, length=t_pad * shift,
+            lengths=torch.from_numpy(counts).to(dev)).cpu().numpy()
+        for i, (u, f) in enumerate(group):
+            with wave.open(os.path.join(inv_out, u + ".wav")) as w:
+                check(w.getframerate() == RATE, f"{u}.wav: rate {w.getframerate()}")
+                got_pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+            want = np.clip(np.round(ys[i, : f.shape[0] * shift]), -32767, 32767)
+            same_inv &= got_pcm.shape == want.shape and np.array_equal(got_pcm, want)
+            y64 = invert.feats_to_signal(torch.from_numpy(f).double()[None], f64, n_iters=4)
+            pcm64 = np.clip(np.round(y64[0].numpy()), -32767, 32767)
+            err64 = max(err64, np.abs(got_pcm - pcm64).max() / 32768.0)
+    print(f"torch-feat-dir-to-signals 8 files, 4 iterations: {wall_inv:.3f} s; wavs bitwise "
+          f"equal to feats_to_signal on the card on the same batches: {same_inv}; max abs "
+          f"from float64 feats_to_signal (CPU) {err64:.3e} of int16 full scale [{smi}]",
+          flush=True)
+    check(same_inv, "torch-feat-dir-to-signals differs from feats_to_signal")
 
-        # FeatureCorpus at 'double', then in feature-file mode over the .pt dir
-        utt2path = [(u, os.path.join(wav_dir, u + ".wav")) for u in utts]
-        t0 = time.perf_counter()
-        batches, got_c = driven(counted, lambda: list(FeatureCorpus(
-            json.loads(cfg(precision="double")), utt2path, num_workers=4)))
-        wall_c = time.perf_counter() - t0
-        check(got_c["stft_feats_int8"] == len(batches) == -(-CLI_UTTS // 32),
-              f"FeatureCorpus: {len(batches)} batches, launches {got_c}")
-        seen = {u: f for us, fs in batches for u, f in zip(us, fs)}
-        check(sorted(seen) == utts and all(
-            isinstance(seen[u], np.ndarray) and np.array_equal(seen[u], pt(b2_dir, u).numpy())
-            for u in utts), "FeatureCorpus differs from the CLI's files")
-        back = {u: f for us, fs in FeatureCorpus(
-            None, [(u, os.path.join(b2_dir, u + ".pt")) for u in utts], batch_size=64)
-            for u, f in zip(us, fs)}
-        check(sorted(back) == utts and all(
-            np.array_equal(back[u], pt(b2_dir, u).double().numpy()) for u in utts),
-            "FeatureCorpus feature-file mode differs from the files")
-        print(f"FeatureCorpus 'double' ({len(batches)} batches of 32, 4 reader threads, "
-              f"stft_feats_int8 x{got_c['stft_feats_int8']}): {wall_c:.3f} s, "
-              f"{audio / wall_c:.0f} audio-s/s, bitwise equal to the CLI's files; feature-file "
-              f"mode reads them back bitwise [{smi}]", flush=True)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # FeatureCorpus at 'double', then in feature-file mode over the .pt dir
+    utt2path = [(u, os.path.join(wav_dir, u + ".wav")) for u in utts]
+    t0 = time.perf_counter()
+    batches, got_c = driven(counted, lambda: list(FeatureCorpus(
+        json.loads(cfg(precision="double")), utt2path, num_workers=4)))
+    wall_c = time.perf_counter() - t0
+    check(got_c["stft_feats_int8"] == len(batches) == -(-CLI_UTTS // 32),
+          f"FeatureCorpus: {len(batches)} batches, launches {got_c}")
+    seen = {u: f for us, fs in batches for u, f in zip(us, fs)}
+    check(sorted(seen) == utts and all(
+        isinstance(seen[u], np.ndarray) and np.array_equal(seen[u], pt(b2_dir, u).numpy())
+        for u in utts), "FeatureCorpus differs from the CLI's files")
+    back = {u: f for us, fs in FeatureCorpus(
+        None, [(u, os.path.join(b2_dir, u + ".pt")) for u in utts], batch_size=64)
+        for u, f in zip(us, fs)}
+    check(sorted(back) == utts and all(
+        np.array_equal(back[u], pt(b2_dir, u).double().numpy()) for u in utts),
+        "FeatureCorpus feature-file mode differs from the files")
+    print(f"FeatureCorpus 'double' ({len(batches)} batches of 32, 4 reader threads, "
+          f"stft_feats_int8 x{got_c['stft_feats_int8']}): {wall_c:.3f} s, "
+          f"{audio / wall_c:.0f} audio-s/s, bitwise equal to the CLI's files; feature-file "
+          f"mode reads them back bitwise [{smi}]", flush=True)
     return counted
 
 
+SERVER_BURST = 16  # phase 20's FeatureServer requests
+
+
+def _burst_utts():
+    """Phase 20's server burst: 16 ragged 1-15 s utterances from a seed."""
+    rng = np.random.RandomState(20)
+    return [(rng.randn(rng.randint(RATE, SECONDS * RATE + 1)) * 0.1).astype(np.float32)
+            for _ in range(SERVER_BURST)]
+
+
+def cold_start_child(store_dir, work, t_spawn):
+    """Phase 20's fresh process (``chip_smoke.py --cold-start-child STORE
+    WORK T``): the main path's batch (``WORK/host.npy``) through
+    ``ShardedExtractor(aot_dir=STORE)`` at 'double' (B2) and at
+    ``fft_mode="pallas"`` (B1), one ``.sph`` file through the store's
+    shorten decoder and a ``FeatureServer(aot_dir=STORE)`` burst; writes
+    the features to WORK and prints, last, a JSON line of the store's
+    stats, its builds' seconds, the compilers it found and the seconds
+    from ``T`` (the parent's clock at the spawn) to its first feature."""
+    marks = [("start", time.time())]  # the interpreter's start, to here
+    import torch
+
+    from speech_tpu_torch import aot, utils
+    from speech_tpu_torch.compute import STFTFrameComputer
+    from speech_tpu_torch.io import _native, read_signal
+    from speech_tpu_torch.parallel import ShardedExtractor
+    from speech_tpu_torch.serve import FeatureServer
+
+    marks.append(("imports", time.time()))
+    dev = torch.device("cuda")
+    torch.zeros(1, device=dev)
+    marks.append(("cuda context", time.time()))
+    out = {"compilers": {c: aot.find_compiler(c) for c in ("nvcc", "g++")}}
+    store = aot.AOTCache(store_dir)
+    utils.enable_persistent_compilation_cache(store)  # the shorten decoder's store too
+
+    def computer(**kw):
+        return STFTFrameComputer(dict(BANK), device=dev, **{**MAIN, **kw})
+
+    host = np.load(os.path.join(work, "host.npy"))
+    full = np.full(host.shape[0], host.shape[1])
+    marks.append(("input", time.time()))
+    comp = computer(precision="double")
+    comp.params
+    marks.append(("host tables", time.time()))
+    feats, _ = ShardedExtractor(comp, aot_dir=store).extract_batch(host, full)
+    first = feats[0, 0].cpu()  # the first feature, on the host
+    marks.append(("libraries + first batch", time.time()))
+    out["first_feature_s"] = marks[-1][1] - t_spawn
+    out["split_s"] = {name: round(t - prev, 3)
+                      for (name, t), (_, prev) in zip(marks, [("spawn", t_spawn)] + marks)}
+    check(bool(torch.isfinite(first).all()), "non-finite first feature")
+    np.save(os.path.join(work, "b2.npy"), feats.cpu().numpy())
+    feats, _ = ShardedExtractor(computer(fft_mode="pallas"), aot_dir=store).extract_batch(
+        host, full)
+    np.save(os.path.join(work, "b1.npy"), feats.cpu().numpy())
+    sph = sorted(glob.glob(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "tests", "audio", "*_shn.sph")))[0]
+    out["shorten_native"] = _native.get_shorten_lib() is not None
+    np.save(os.path.join(work, "sph.npy"), read_signal(sph))
+    with FeatureServer(computer(precision="double"), max_batch=SERVER_BURST,
+                       aot_dir=store) as server:
+        futures = [server.submit(u) for u in _burst_utts()]
+        answers = [f.result() for f in futures]
+    np.savez(os.path.join(work, "server.npz"), *answers)
+    out["stats"] = dict(store.stats)
+    out["build_seconds"] = dict(store.build_seconds)
+    print(json.dumps(out), flush=True)
+
+
+def cold_start_phase(dev, smi, host, tmp):
+    """Phase 20: the library store.  A fresh process on an empty store with
+    the compilers reachable (it builds the four libraries: the cold
+    start), then one on that store with no compiler reachable (the warm
+    start), each against the parent's features on the same route and
+    batch, bitwise; the CLI's ``--precompile`` and a run in a process
+    without compilers against phase 19's files, bitwise; ``--aot-prune``
+    on a planted orphan.  Returns the launches of the parent's driven
+    paths."""
+    import io
+
+    import torch
+
+    from speech_tpu_torch import command_line
+    from speech_tpu_torch.aot import AOTCache
+    from speech_tpu_torch.compute import STFTFrameComputer
+    from speech_tpu_torch.io import read_signal
+    from speech_tpu_torch.parallel import ShardedExtractor
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    counted = {}
+    work, store = os.path.join(tmp, "cold"), os.path.join(tmp, "store")
+    empty = os.path.join(tmp, "no_compilers")  # PATH and CUDA_HOME of the warm runs
+    for d in (work, empty):
+        os.makedirs(d)
+    np.save(os.path.join(work, "host.npy"), host)
+    no_compilers = {"PATH": empty, "CUDA_HOME": empty}
+
+    def computer(**kw):
+        return STFTFrameComputer(dict(BANK), device=dev, **{**MAIN, **kw})
+
+    def child(label, env):
+        t = time.time()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--cold-start-child", store, work, repr(t)],
+            env=dict(os.environ, **env), capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"{label} child failed ({proc.returncode}): "
+                                    f"{proc.stderr[-3000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        got["wall_s"] = time.time() - t
+        got["feats"] = {k: np.load(os.path.join(work, f"{k}.npy")) for k in ("b2", "b1", "sph")}
+        with np.load(os.path.join(work, "server.npz")) as z:
+            got["server"] = [z[f"arr_{i}"] for i in range(SERVER_BURST)]
+        return got
+
+    # (a) and (c): a fresh process, an empty store, the compilers reachable
+    cold = child("cold", {})
+    st = cold["stats"]
+    check(st["misses"] == 4 and st["hits"] == 0 and st["errors"] == 0 and st["fallbacks"] == 0,
+          f"cold store stats {st}")
+    check(sorted(cold["build_seconds"]) == ["double_kernels", "int8_kernels", "shorten",
+                                            "stft_kernels"], f"builds {cold['build_seconds']}")
+    store_bytes = AOTCache(store).size_bytes()
+    print(f"cold start (a fresh process, an empty store, nvcc and g++ reachable): builds "
+          f"{ {k: round(v, 3) for k, v in sorted(cold['build_seconds'].items())} } s "
+          f"(the three nvcc builds run together), stats {st}; first feature "
+          f"{cold['first_feature_s']:.3f} s after the spawn ({cold['split_s']}), whole child "
+          f"{cold['wall_s']:.3f} s; store {store_bytes} bytes [{smi}]", flush=True)
+
+    # (b): a fresh process on that store, no compiler reachable
+    warm = child("warm", no_compilers)
+    st = warm["stats"]
+    check(not any(warm["compilers"].values()), f"the warm child found {warm['compilers']}")
+    check(st["misses"] == 0 and st["errors"] == 0 and st["fallbacks"] == 0 and st["hits"] == 4,
+          f"warm store stats {st}")
+    check(warm["shorten_native"] and cold["shorten_native"], "shorten fell back to Python")
+
+    # the parent's own features on the same routes and batch
+    full = np.full(host.shape[0], host.shape[1])
+    own = {}
+    for key, kw in (("b2", dict(precision="double")), ("b1", dict(fft_mode="pallas"))):
+        ex = ShardedExtractor(computer(**kw))
+        own[key], got = driven(counted, lambda: ex.extract_batch(host, full)[0].cpu().numpy())
+        want = {"b2": "stft_feats_int8", "b1": "stft_feats_rows"}[key]
+        check(got[want] == 1, f"{key}: the parent's run launched {got}")
+    sph = sorted(glob.glob(os.path.join(here, "tests", "audio", "*_shn.sph")))[0]
+    own["sph"] = read_signal(sph)
+    for label, run in (("cold", cold), ("warm", warm)):
+        for key in ("b2", "b1", "sph"):
+            check(np.array_equal(run["feats"][key], own[key]),
+                  f"the {label} child's {key} differs from the parent's")
+    ref = computer(precision="double", fft_mode="matmul")
+    plain = [ref.compute_batch(u[None], [u.size])[0][0].cpu().numpy() for u in _burst_utts()]
+    for label, run in (("cold", cold), ("warm", warm)):
+        err = max(np.abs(a - b).max() if a.shape == b.shape else np.inf
+                  for a, b in zip(run["server"], plain))
+        check(err <= TOL_INT8, f"{label} FeatureServer burst vs the plain digit route: {err}")
+    print(f"warm start (a fresh process on that store, no nvcc, no g++: PATH and CUDA_HOME an "
+          f"empty directory): stats {st}; first feature {warm['first_feature_s']:.3f} s after "
+          f"the spawn ({warm['split_s']}), whole child "
+          f"{warm['wall_s']:.3f} s; B2 and B1 features of {BATCH} x {SECONDS} s and the .sph "
+          f"bitwise equal to the parent's (and the cold child's); {SERVER_BURST} FeatureServer "
+          f"answers within {TOL_INT8:g} of the plain digit route [{smi}]", flush=True)
+
+    # (d): --precompile, then the run in a process with no compiler
+    cli_store = os.path.join(tmp, "cli_store")
+    cfg = json.dumps({"name": "stft", "bank": dict(BANK), **MAIN, "precision": "double"})
+    argv = ["signals-to-torch-feat-dir", os.path.join(tmp, "map.txt"), cfg,
+            os.path.join(tmp, "precompiled"), "--batch-size", str(CLI_BATCH),
+            "--aot-dir", cli_store]
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = command_line.main(argv + ["--precompile"])
+    pre_s = time.perf_counter() - t0
+    check(rc == 0, f"--precompile returned {rc}: {err.getvalue()[-2000:]}")
+    summary = [line for line in err.getvalue().splitlines() if line.startswith("precompiled")]
+    check(len(summary) == 1, f"no --precompile summary: {err.getvalue()[-2000:]}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "speech_tpu_torch.command_line", *argv],
+                          env=dict(os.environ, PYTHONPATH=here, **no_compilers), cwd=here,
+                          capture_output=True, text=True, timeout=900)
+    run_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the precompiled CLI run failed ({proc.returncode}): "
+                                f"{proc.stderr[-3000:]}")
+    names = sorted(os.listdir(os.path.join(tmp, "b2")))
+    check(sorted(os.listdir(os.path.join(tmp, "precompiled"))) == names,
+          "the precompiled run wrote other files than phase 19")
+    for name in names:
+        check(torch.equal(torch.load(os.path.join(tmp, "precompiled", name)),
+                          torch.load(os.path.join(tmp, "b2", name))),
+              f"{name} differs from phase 19's")
+    print(f"CLI: {summary[0]} in {pre_s:.3f} s (in this process, which loaded the libraries "
+          f"already: its misses are copies); the run in a fresh process with no compiler "
+          f"reachable: rc 0, {run_s:.3f} s, {len(names)} files bitwise equal to phase 19's",
+          flush=True)
+
+    # (e): --aot-prune after a planted orphan
+    orphan = os.path.join(cli_store, "fp-0000000000000000")
+    os.makedirs(orphan)
+    with open(os.path.join(orphan, "stale.so"), "wb") as f:
+        f.write(b"not a library")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = command_line.main(argv + ["--aot-prune"])
+    check(rc == 0 and "1 orphan(s) swept" in out.getvalue() and not os.path.exists(orphan),
+          f"--aot-prune: rc {rc}, {out.getvalue()!r}")
+    print(f"CLI --aot-prune: {out.getvalue().strip()}", flush=True)
+    return counted
+
+
+def compat_phase(dev, smi, host):
+    """Phase 21: the compatibility layer (``speech_tpu_torch.torch``) and
+    ``log32`` on the card."""
+    import torch
+
+    import speech_tpu_torch.torch as ttorch
+    from speech_tpu_torch.compute import SIFrameComputer, STFTFrameComputer
+    from speech_tpu_torch.ops.xmath import log32
+
+    sig = host[0]
+    x = torch.tensor(sig, device=dev)
+    comp = STFTFrameComputer(dict(BANK), device=dev, **MAIN)
+    mod = ttorch.PyTorchSTFTFrameComputer.from_stft_frame_computer(comp)
+    check({p.device.type for p in mod.parameters()} == {"cuda"}, "parameters off the card")
+    got = mod(x)
+    want = comp.compute_full(sig)
+    check(tuple(got.shape) == want.shape, f"STFT module shape {tuple(got.shape)} vs {want.shape}")
+    err = np.abs(got.detach().cpu().numpy() - want).max()
+    check(err <= TOL_FLOAT, f"PyTorchSTFTFrameComputer vs compute_full: {err}")
+    got.mean().backward()
+    grads = {n: p.grad for n, p in mod.named_parameters()}
+    check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values()),
+          "non-finite or missing gradients")
+    fwd_ms = cuda_ms(lambda: mod(x))
+    si = SIFrameComputer(dict(SI_BANKS["gammatone"]), frame_shift_ms=10, include_energy=True,
+                         device=dev, dtype="float32")
+    si_mod = ttorch.PyTorchSIFrameComputer.from_si_frame_computer(si)
+    si_got = si_mod(x).detach().cpu().numpy()
+    si_want = si.compute_full(sig)
+    check(si_got.shape == si_want.shape, f"SI module shape {si_got.shape} vs {si_want.shape}")
+    si_err = np.abs(si_got - si_want).max()
+    check(si_err <= TOL_FLOAT, f"PyTorchSIFrameComputer vs compute_full: {si_err}")
+    grid = torch.logspace(-6, 6, 1 << 20, device=dev, dtype=torch.float32)
+    a = log32(grid).view(torch.int32).long()
+    b = torch.log(grid).view(torch.int32).long()
+    ulps = (a - b).abs().max().item()
+    check(ulps <= 2, f"log32 vs torch.log on the card: {ulps} ulp")
+    print(f"compat: PyTorchSTFTFrameComputer (main config, 1 x {SECONDS} s) vs compute_full: "
+          f"max abs {err:.3e} (tol {TOL_FLOAT:g}), forward {fwd_ms:.3f} ms, gradients finite "
+          f"({', '.join(sorted(grads))}); PyTorchSIFrameComputer gammatone-40 vs compute_full: "
+          f"max abs {si_err:.3e}; log32 vs torch.log on [1e-6, 1e6] (2^20 points): {ulps} ulp "
+          f"[{smi}]", flush=True)
+    print("vis: not run here (no matplotlib on this machine); tests/test_torch_vis.py holds "
+          "speech_tpu_torch.vis against speech_tpu.vis on the CPU", flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cold-start-child"]:
+        cold_start_child(sys.argv[2], sys.argv[3], float(sys.argv[4]))
+    else:
+        main()

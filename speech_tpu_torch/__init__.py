@@ -14,6 +14,25 @@ from . import ops  # noqa: F401
 from . import corpus, nn, parallel, profiling  # noqa: F401
 from . import models, serve  # noqa: F401
 
-# imported on use, as in the JAX package: speech_tpu_torch.command_line
+# imported on use, as in the JAX package:
+#   speech_tpu_torch.torch  (the PyTorch compatibility layer)
+#   speech_tpu_torch.vis    (requires matplotlib)
+#   speech_tpu_torch.command_line
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # deprecated top-level re-exports, mirroring the reference's shim
+    # (reference: __init__.py:39-48); canonical home is speech_tpu_torch.alias
+    if name in ("AliasedFactory", "alias_factory_subclass_from_arg"):
+        import warnings
+
+        warnings.warn(
+            f"using {name} from speech_tpu_torch is deprecated; import it "
+            "from speech_tpu_torch.alias",
+            category=DeprecationWarning,
+            stacklevel=2,
+        )
+        return getattr(alias, name)
+    raise AttributeError(f"module 'speech_tpu_torch' has no attribute '{name}'")

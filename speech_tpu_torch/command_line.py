@@ -31,9 +31,10 @@ Commands:
   optional compression / text conversion, or table -> ``.pt`` dir and
   back (no reference counterpart; native table I/O).
 
-The AOT store flags (``--aot-dir``, ``--precompile``, ``--aot-prune``) are
-parsed as the JAX package parses them and refused: the store is not ported
-yet.
+The library store flags (``--aot-dir``, ``--aot-max-bytes``,
+``--precompile``, ``--aot-prune``) are the JAX package's: the store
+(:mod:`speech_tpu_torch.aot`) holds the built kernel libraries, so a run
+over a store that ``--precompile`` warmed builds nothing.
 """
 
 import argparse
@@ -460,57 +461,76 @@ def _signals_to_torch_feat_dir_parse_args(args):
 
 
 def _add_aot_args(parser, precompile=False):
-    # the JAX package's AOT store options, parsed so that every command
-    # takes the same options as its JAX counterpart; _refuse_aot rejects
-    # them until the store is ported
     parser.add_argument(
         "--aot-dir",
         default=None,
         metavar="DIR",
-        help="On-disk ahead-of-time program store: not ported yet "
-        "(refused).",
+        help="On-disk store of the built kernel libraries "
+        "(speech_tpu_torch.aot.AOTCache): CUDA kernels (nvcc) and the "
+        "shorten decoder (g++) that ANY previous process built load from "
+        "it instead of rebuilding, also on a machine with no compiler."
+        + (
+            " Populate it once with --precompile; later runs then "
+            "start cold with zero builds."
+            if precompile
+            else " The first run populates it; later runs start cold "
+            "with zero builds."
+        ),
     )
     if precompile:
         parser.add_argument(
             "--precompile",
             action="store_true",
-            help="Build every bucket program this corpus needs into "
-            "--aot-dir and exit: not ported yet (refused).",
+            help="Run every bucket this corpus needs once into --aot-dir "
+            "and exit without writing features. Scans the corpus for "
+            "signal lengths/dtypes, runs a zero batch of each (bucket x "
+            "batch x dtype) grid point, and stores the libraries they "
+            "load.",
         )
     parser.add_argument(
         "--aot-max-bytes",
         type=int,
         default=None,
         metavar="N",
-        help="Byte cap on the --aot-dir store (only read with --aot-dir).",
+        help="Byte cap on the --aot-dir store: after each store write "
+        "(and under --aot-prune), least-recently-used libraries past "
+        "the cap are evicted (hits refresh an entry's clock).",
     )
     parser.add_argument(
         "--aot-prune",
         action="store_true",
-        help="Prune the --aot-dir store and exit: not ported yet (refused).",
+        help="Prune the --aot-dir store and exit: sweep libraries "
+        "orphaned by a compiler upgrade (their fingerprint can never be "
+        "served again where that compiler is installed) and evict LRU "
+        "entries past --aot-max-bytes, then print what was removed.",
     )
 
 
-def _refuse_aot(options) -> bool:
-    """Whether an AOT store flag was given; if so, say that the store is
-    not ported yet (the caller exits non-zero)."""
-    given = [
-        flag
-        for flag, value in (
-            ("--aot-dir", getattr(options, "aot_dir", None) is not None),
-            ("--precompile", getattr(options, "precompile", False)),
-            ("--aot-prune", getattr(options, "aot_prune", False)),
-        )
-        if value
-    ]
-    if given:
-        print(
-            f"{', '.join(given)}: the AOT program store is not ported to "
-            "speech_tpu_torch yet (ROADMAP queue A item 12, the AOT "
-            "cold-start store)",
-            file=sys.stderr,
-        )
-    return bool(given)
+def _make_aot(options):
+    """AOTCache for --aot-dir (with the --aot-max-bytes cap), or None."""
+    aot_dir = getattr(options, "aot_dir", None)
+    if aot_dir is None:
+        return None
+    from .aot import AOTCache
+
+    return AOTCache(
+        aot_dir, max_bytes=getattr(options, "aot_max_bytes", None)
+    )
+
+
+def _handle_aot_prune(options) -> bool:
+    """--aot-prune: sweep/evict the store and report.  True = handled
+    (the caller exits 0 without doing any feature work)."""
+    if not getattr(options, "aot_prune", False):
+        return False
+    if getattr(options, "aot_dir", None) is None:
+        raise SystemExit("--aot-prune requires --aot-dir")
+    res = _make_aot(options).prune()
+    print(
+        "aot store pruned: {orphans_removed} orphan(s) swept, "
+        "{evicted} evicted, {kept} kept ({bytes} bytes)".format(**res)
+    )
+    return True
 
 
 def _add_vad_trim_arg(parser):
@@ -674,8 +694,8 @@ def _writes_outputs() -> bool:
 
 
 def _signals_to_torch_feat_dir(options) -> int:
-    if _refuse_aot(options):
-        return 1
+    if _handle_aot_prune(options):
+        return 0
     if options.seed is None:
         seed = None
     else:
@@ -815,6 +835,10 @@ def _signals_to_torch_feat_dir(options) -> int:
     preprocessors, postprocessors = _build_processors(options)
     os.makedirs(options.dir, exist_ok=True)
     writes = _writes_outputs()
+    if computer is not None:
+        from .utils import enable_persistent_compilation_cache
+
+        enable_persistent_compilation_cache()
 
     if speed_factors is None:
         items = list(enumerate(sorted(utt2path.items())))
@@ -861,10 +885,22 @@ def _signals_to_torch_feat_dir(options) -> int:
             computer,
             mesh,
             bucket="fine" if options.fine_buckets else "pow2",
+            aot_dir=_make_aot(options),
         )
         if pitch is not None:
             pitch.mesh = mesh
             pitch.min_batch = options.batch_size
+    if options.precompile:
+        if extractor is None:
+            print(
+                "--precompile requires a computer config and a nonzero "
+                "--batch-size (it runs the batched device routes)",
+                file=sys.stderr,
+            )
+            return 1
+        if options.aot_dir is None:
+            print("--precompile requires --aot-dir", file=sys.stderr)
+            return 1
 
     from .profiling import StageTimer, trace
 
@@ -896,6 +932,111 @@ def _signals_to_torch_feat_dir(options) -> int:
     def save_timed(utt_id, feats):
         with timer.stage("write"):
             save(utt_id, feats)
+
+    if options.precompile:
+        from math import gcd
+
+        from .aot import precompile_extractor
+        from .io import probe_signal_info
+
+        def _resampled_len(n, up, down):
+            g = gcd(int(up), int(down))
+            L, M = int(up) // g, int(down) // g
+            return -(-n * L // M)  # ops/resample.resample_np's n_out
+
+        # size the grid from container headers where they are decisive
+        # (wav-PCM/SPHERE/npy sample counts, adjusted by the exact
+        # resample/speed length formulas): a full IO+decode sweep over a
+        # large corpus only to learn lengths is the slow path, so it is
+        # reserved for utterances whose length or compacted dtype a header
+        # cannot determine
+        lengths, dtypes = [], set()
+        slow_items = []
+        for item in items:
+            _idx, rest = item
+            speed = rest[2] if len(rest) == 3 else None
+            path = rest[1]
+            n = None
+            info = probe_signal_info(path, options.force_as)
+            if info is not None:
+                n, _chans, native = info
+                if resample_rates is not None:
+                    n = _resampled_len(n, *resample_rates)
+                if speed is not None:
+                    n = _resampled_len(n, *speed)
+                if preprocessors:
+                    dtypes.add(np.dtype(np.float64))
+                elif resample_rates is not None or speed is not None:
+                    # polyphase output is fractional: never compacts
+                    dtypes.add(np.dtype(np.float64))
+                elif native in (np.dtype(np.int16), np.dtype(np.uint8)):
+                    dtypes.add(np.dtype(np.int16))  # _compact_pcm path
+                else:
+                    n = None  # can't predict compaction: decode it
+            if n is None:
+                slow_items.append(item)
+            else:
+                lengths.append(int(n))
+        if slow_items:
+            print(
+                f"precompile: decoding {len(slow_items)} utterance(s) "
+                "without decisive headers "
+                f"({len(lengths)} sized from headers)",
+                file=sys.stderr,
+            )
+            for _utt_id, signal in mapper(
+                lambda item: _load_utt(
+                    item,
+                    preprocessors,
+                    options.channel,
+                    options.force_as,
+                    seed,
+                    compact=True,
+                    resample=resample_rates,
+                ),
+                slow_items,
+            ):
+                lengths.append(len(signal))
+                dtypes.add(np.asarray(signal).dtype)
+        if not lengths:
+            print("no utterances to precompile for", file=sys.stderr)
+            return 1
+        n = precompile_extractor(
+            extractor,
+            lengths,
+            batches=[options.batch_size],
+            dtypes=sorted(dtypes, key=str),
+            progress=lambda msg: print(msg, file=sys.stderr),
+        )
+        if pitch is not None:
+            # the --pitch appender's own bucket grid (pow2 lengths with
+            # its 8192 floor, pow2 batch), as the JAX package walks it
+            for dtype in sorted(dtypes, key=str):
+                seen = set()
+                for m in lengths:
+                    L = pitch.bucket_len(m)
+                    if L in seen:
+                        continue
+                    seen.add(L)
+                    n += 1
+                    print(
+                        f"precompile pitch bucket={L} "
+                        f"batch={options.batch_size} "
+                        f"dtype={np.dtype(dtype).name}",
+                        file=sys.stderr,
+                    )
+                    pitch.batch(
+                        [np.zeros(L, dtype)] * options.batch_size
+                    )
+        s = extractor.aot.stats
+        print(
+            f"precompiled {n} program grid points into {options.aot_dir} "
+            f"(compiled {s['misses']}, already stored {s['hits']})",
+            file=sys.stderr,
+        )
+        if pool is not None:
+            pool.shutdown()
+        return 0
 
     try:
         with trace(options.profile or None):
@@ -1141,8 +1282,8 @@ def compute_feats_from_kaldi_tables(args: Optional[Sequence[str]] = None) -> int
         return ex.code
     if options.verbose:
         logging.basicConfig(level=logging.INFO)
-    if _refuse_aot(options):
-        return 1
+    if _handle_aot_prune(options):
+        return 0
     try:
         from pydrobert.kaldi.io import open as kaldi_open  # type: ignore
         from pydrobert.kaldi.io.enums import KaldiDataType  # type: ignore
@@ -1479,12 +1620,15 @@ def compute_feats_from_kaldi_tables(args: Optional[Sequence[str]] = None) -> int
         # path as signals-to-torch-feat-dir; extract_iter double-buffers
         # so host table decode overlaps device compute
         from .parallel import ShardedExtractor
+        from .utils import enable_persistent_compilation_cache
 
+        enable_persistent_compilation_cache()
         mesh = _data_mesh(computer)
         extractor = ShardedExtractor(
             computer,
             mesh,
             bucket="fine" if options.fine_buckets else "pow2",
+            aot_dir=_make_aot(options),
         )
         if pitch is not None:
             pitch.mesh = mesh
@@ -1644,8 +1788,8 @@ def torch_feat_dir_to_signals(args: Optional[Sequence[str]] = None) -> int:
         options = _torch_feat_dir_to_signals_parse_args(args)
     except SystemExit as ex:
         return ex.code
-    if _refuse_aot(options):
-        return 1
+    if _handle_aot_prune(options):
+        return 0
     if options.peak_norm is not None and not 0.0 < options.peak_norm <= 1.0:
         print(
             f"--peak-norm must be in (0, 1], got {options.peak_norm}",
@@ -1684,7 +1828,12 @@ def torch_feat_dir_to_signals(args: Optional[Sequence[str]] = None) -> int:
     import wave
 
     from .ops.invert import feats_to_signal
+    from .utils import enable_persistent_compilation_cache
 
+    enable_persistent_compilation_cache()
+    # the inversion runs no hand-written kernel, so the store receives
+    # only what the computer's own routes load
+    computer.enable_aot(_make_aot(options))
     bsz = max(1, options.batch_size)
     F = computer.num_coeffs
     rate = int(round(computer.bank.sampling_rate))

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from . import config
+from .aot import as_cache, using
 from .alias import AliasedFactory, alias_factory_subclass_from_arg
 from .filters import GammaWindow, HannWindow, LinearFilterBank, WindowFunction
 from .ops import framing as _framing
@@ -118,6 +119,21 @@ class FrameComputer(AliasedFactory):
     all at once (`compute_full`); the two agree for any chunking
     (reference: compute.py:48-178).
     """
+
+    _aot = None  # optional store of kernel libraries (see enable_aot)
+
+    def enable_aot(self, store) -> None:
+        """Take this computer's kernel libraries from a library store.
+
+        ``store`` is a directory path or a
+        :class:`speech_tpu_torch.aot.AOTCache`.  Libraries a previous
+        process built load from it instead of rebuilding: the cold-start
+        answer for the fused-kernel ``compute_batch`` routes.  A library
+        this process loaded before the call is not loaded again; the
+        store receives a copy of its file at the next launch, so a route
+        exercised before the wiring still lands in the store.
+        """
+        self._aot = as_cache(store)
 
     @property
     @abc.abstractmethod
@@ -516,6 +532,11 @@ class ShortTimeFourierTransformFrameComputer(LinearFilterBankFrameComputer):
                 padded, max_frames, self._frame_length, self._frame_shift
             )
             return _stft.stft_feats_from_frames(frames, params, **self._static_spec)
+        with using(self._aot):
+            return self._kernel_feats(route, padded, params, max_frames)
+
+    def _kernel_feats(self, route: str, padded, params, max_frames: int):
+        """:meth:`_padded_feats` through the kernel of ``route``."""
         spec = dict(
             use_log=self._log,
             use_power=self._power,

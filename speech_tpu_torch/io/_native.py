@@ -1,75 +1,50 @@
 """Loader for the native (C++) shorten decoder.
 
 Compiles ``speech_tpu_torch/csrc/shorten.cpp`` with the system C++
-compiler on first use into ``build/speech_tpu_torch/`` at the root of the
-checkout (named by the hash of the source and flags, beside the CUDA
-kernels' libraries), and exposes it via ctypes.  Returns None when no
-compiler or library is available, in which case callers fall back to the
-pure-Python decoder in :mod:`speech_tpu_torch.io.sphere` (same output, bit
-for bit).
+compiler on first use into the active library store
+(:func:`speech_tpu_torch.aot.active_store`: by default
+``build/speech_tpu_torch/`` at the root of the checkout, beside the CUDA
+kernels' libraries), keyed by the source and flags under the g++ release
+that built it, and exposes it via ctypes.  A warmed store serves a machine
+with no compiler.  Returns None when no library can be had, in which case
+callers fall back to the pure-Python decoder in
+:mod:`speech_tpu_torch.io.sphere` (same output, bit for bit).
 """
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 import threading
 import warnings
+import weakref
 from pathlib import Path
 
 import numpy as np
 
-from ..ops._build import _build_dir
+from .. import aot
 
 __all__ = ["get_shorten_lib", "decode_shorten_native"]
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "shorten.cpp"
 _FLAGS = ("-O2", "-shared", "-fPIC")
 _LOCK = threading.Lock()
-_LIB = None
-_TRIED = False
+# store -> the loaded library, or None where it could not be had
+_LIBS = weakref.WeakKeyDictionary()
 
 
-def _so_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes())
-    digest.update(" ".join(_FLAGS).encode())
-    return _build_dir() / f"libshorten_{digest.hexdigest()[:16]}.so"
+def _so_path() -> str:
+    """The file the loaded library came from."""
+    return get_shorten_lib()._name
 
 
-def _build() -> str:
-    out = _so_path()
-    if out.exists():
-        return str(out)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    # build into a temp file then atomically rename, so concurrent
-    # processes never load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        subprocess.run(
-            ["g++", *_FLAGS, "-o", tmp, str(_SRC)],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return str(out)
-
-
-def get_shorten_lib():
-    """The loaded native library, building it if necessary; None if
-    unavailable."""
-    global _LIB, _TRIED
+def get_shorten_lib(store=None):
+    """The loaded native library from ``store`` (a path or an
+    :class:`~speech_tpu_torch.aot.AOTCache`; None: the active store),
+    building it if necessary; None if unavailable."""
+    store = aot.as_cache(store) or aot.active_store()
     with _LOCK:
-        if _TRIED:
-            return _LIB
-        _TRIED = True
+        if store in _LIBS:
+            return _LIBS[store]
         try:
-            lib = ctypes.CDLL(_build())
+            lib = store.load_library("shorten", _SRC, _FLAGS, "g++")
             fn = lib.stpu_decode_shorten
             fn.restype = ctypes.c_longlong
             fn.argtypes = [
@@ -80,14 +55,14 @@ def get_shorten_lib():
                 ctypes.c_void_p,
                 ctypes.POINTER(ctypes.c_int),
             ]
-            _LIB = lib
         except Exception as e:  # no compiler, bad toolchain, ...
             warnings.warn(
                 f"native shorten decoder unavailable ({e}); using the "
                 "pure-Python fallback"
             )
-            _LIB = None
-        return _LIB
+            lib = None
+        _LIBS[store] = lib
+        return lib
 
 
 def decode_shorten_native(payload: bytes, out_len: int, ulaw_outward):

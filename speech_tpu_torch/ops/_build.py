@@ -7,22 +7,22 @@ one ``nvcc`` each, which is why each kernel family keeps a source of its
 own: ``stft_kernels.cu`` (B1/B3, the fused float kernel),
 ``int8_kernels.cu`` (B2, the int8 digit tiers on the tensor cores) and
 ``double_kernels.cu`` (B4, the base-256 digit kernel).  Each library
-exports its own ``stk_error_string`` for its own error codes.  Libraries
-land in ``build/speech_tpu_torch/`` at the root of the checkout, named by
-the hash of their source and flags, so an edited source rebuilds and an
-unchanged one loads as it is.  (The host shorten decoder,
-``csrc/shorten.cpp``, is built with g++ by :mod:`speech_tpu_torch.io._native`
-into the same directory.)
+exports its own ``stk_error_string`` for its own error codes.  The
+libraries live in a :class:`speech_tpu_torch.aot.AOTCache`, keyed by
+their source, flags and the card's compute capability under the nvcc
+release that built them, so an edited source rebuilds, an unchanged one
+loads as it is, and a warmed store serves a machine with no nvcc.  (The
+host shorten decoder, ``csrc/shorten.cpp``, is built with g++ by
+:mod:`speech_tpu_torch.io._native` into the same stores.)
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
+import weakref
 from pathlib import Path
 from typing import Dict
+
+from .. import aot
 
 __all__ = ["load_kernels"]
 
@@ -34,64 +34,39 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+# store -> {source stem: CDLL}: each store is asked once a process
+_by_store: "weakref.WeakKeyDictionary[aot.AOTCache, Dict[str, ctypes.CDLL]]" = (
+    weakref.WeakKeyDictionary()
+)
 
 
 def _build_dir() -> Path:
-    """``build/speech_tpu_torch`` beside the package."""
-    return _PKG.parent / "build" / "speech_tpu_torch"
+    """``build/speech_tpu_torch`` beside the package (the default store)."""
+    return aot.DEFAULT_DIR
 
 
 def _nvcc() -> str:
-    found = shutil.which("nvcc")
+    found = aot.find_compiler("nvcc")
     if found:
         return found
-    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    default = home / "bin" / "nvcc"
-    if default.exists():
-        return str(default)
     raise RuntimeError(
         "nvcc not found: the CUDA kernels need the CUDA toolkit "
         "(nvcc on PATH or under $CUDA_HOME/bin, by default /usr/local/cuda)"
     )
 
 
-def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return _build_dir() / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
-
-
-def load_kernels() -> Dict[str, ctypes.CDLL]:
-    """Build (where needed) and load every kernel source; returns
-    ``{source stem: CDLL}``."""
+def load_kernels(store=None) -> Dict[str, ctypes.CDLL]:
+    """Load every kernel library from ``store`` (a path or an
+    :class:`~speech_tpu_torch.aot.AOTCache`; None: the process default),
+    building the missing ones; returns ``{source stem: CDLL}``."""
+    store = aot.as_cache(store) or aot.default_store()
     with _lock:
-        if _libs:
-            return _libs
-        sources = sorted(CSRC.glob("*.cu"))
-        _build_dir().mkdir(parents=True, exist_ok=True)
-        jobs = []
-        for src in sources:
-            target = _target(src)
-            if target.exists():
-                continue
-            tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-            proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT,
-                text=True,
-            )
-            jobs.append((src, target, tmp, proc))
-        errors = []
-        for src, target, tmp, proc in jobs:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"nvcc failed on {src.name}:\n{log}")
-                continue
-            os.replace(tmp, target)
-        if errors:
-            raise RuntimeError("\n".join(errors))
-        for src in sources:
-            _libs[src.stem] = ctypes.CDLL(str(_target(src)))
-        return _libs
+        libs = _by_store.get(store)
+        if libs is None:
+            capability = aot.device_capability()
+            libs = store.load_libraries([
+                aot.Library(src.stem, src, NVCC_FLAGS, "nvcc", capability)
+                for src in sorted(CSRC.glob("*.cu"))
+            ])
+            _by_store[store] = libs
+        return libs

@@ -45,6 +45,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .. import aot as _aot
 from .framing import frame_padded
 from .stft import (
     _I8_BASE,
@@ -193,11 +194,18 @@ _LIBRARIES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
 def _launcher(name: str):
-    """``(launch, error_string)`` for the C launcher ``name``, with its
+    """``(launch, error_string)`` for the C launcher ``name`` from the
+    active store (:func:`speech_tpu_torch.aot.active_store`), with its
     ctypes signature set."""
-    lib = _build.load_kernels()[_LIBRARIES[name]]
+    return _bound(name, _aot.active_store())
+
+
+@functools.lru_cache(maxsize=None)
+def _bound(name: str, store):
+    """:func:`_launcher` of ``name`` from ``store``: each store is asked
+    for its libraries once, so it receives (or serves) every one."""
+    lib = _build.load_kernels(store)[_LIBRARIES[name]]
     fn = getattr(lib, name)
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int

@@ -97,8 +97,11 @@ class ShardedExtractor:
         row's edge handling at its own valid extent.  Frame counts reflect
         any count-changing op (stack).
     aot_dir
-        Not ported: ahead-of-time program stores belong to the JAX
-        package's ``aot.py``, whose counterpart is still to come.
+        Optional store of kernel libraries (a path or a
+        :class:`speech_tpu_torch.aot.AOTCache`, shared as it is): the
+        computer takes its kernels from it (``computer.enable_aot``), so a
+        store a previous process (or ``--precompile``) warmed serves with
+        no compiler.  The store is ``self.aot``.
     """
 
     def __init__(
@@ -108,15 +111,11 @@ class ShardedExtractor:
         data_axis: str = "data",
         bucket: str = "pow2",
         postprocessors=(),
-        aot_dir: Optional[str] = None,
+        aot_dir=None,
     ):
+        from ..aot import as_cache
         from ..ops.postops import device_post_chain
 
-        if aot_dir is not None:
-            raise NotImplementedError(
-                "ShardedExtractor(aot_dir=) is not ported yet (ROADMAP "
-                "queue A item 12, with aot.py)"
-            )
         if bucket not in ("pow2", "fine"):
             raise ValueError(f"bucket must be 'pow2' or 'fine', got {bucket!r}")
         if mesh is not None and computer.device.type != mesh.device_type:
@@ -131,6 +130,9 @@ class ShardedExtractor:
         self._post = (
             device_post_chain(postprocessors) if postprocessors else None
         )
+        self.aot = as_cache(aot_dir)  # path, AOTCache, or None
+        if self.aot is not None:
+            computer.enable_aot(self.aot)
 
     def bucket_len(self, n: int) -> int:
         """The padded signal length :meth:`extract` uses for length ``n``."""

@@ -36,17 +36,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .aot import as_cache
 from .parallel import ShardedExtractor
 from .parallel.mesh import axis_size, global_tensor
 from .streaming import StreamingSI, StreamingSTFT, _tree_map
 
 __all__ = ["FeatureServer", "StreamPool", "StreamServer"]
-
-_AOT_NOT_PORTED = (
-    "aot_dir= is not ported yet (ROADMAP queue A item 12: the cold-start "
-    "store that replaces aot.py)"
-)
-
 
 def _device_scope(device: torch.device):
     """Make ``device`` the thread's current card inside the block (a new
@@ -94,8 +89,11 @@ class FeatureServer:
         Optional host post-processor instances run on the device after the
         features (forwarded to the extractor).
     aot_dir
-        Not ported: raises NotImplementedError (the JAX package's AOT
-        executable store has no counterpart yet).
+        Optional store of kernel libraries
+        (:class:`speech_tpu_torch.aot.AOTCache` or its path), forwarded to
+        the extractor: libraries a previous process built load from it,
+        so the first request pays no build.  Its stats are
+        ``server._extractor.aot.stats``.
 
     Attributes
     ----------
@@ -116,8 +114,6 @@ class FeatureServer:
         postprocessors=(),
         aot_dir: str = None,
     ):
-        if aot_dir is not None:
-            raise NotImplementedError(f"FeatureServer({_AOT_NOT_PORTED})")
         if pad_batches not in (True, False, "pow2"):
             raise ValueError(
                 f"pad_batches must be True, False, or 'pow2'; got {pad_batches!r}"
@@ -128,7 +124,8 @@ class FeatureServer:
                 "micro-batches would differ between processes"
             )
         self._extractor = ShardedExtractor(
-            computer, mesh, bucket=bucket, postprocessors=postprocessors
+            computer, mesh, bucket=bucket, postprocessors=postprocessors,
+            aot_dir=aot_dir,
         )
         self._device = computer.device
         self._max_batch = int(max_batch)
@@ -383,6 +380,11 @@ class StreamPool:
     (into pinned memory from a card).  Not thread-safe: drive it from one
     serving loop (:class:`StreamServer` does).
 
+    ``aot_dir`` (path or :class:`speech_tpu_torch.aot.AOTCache`) is kept
+    as ``pool.aot``, as the JAX package keeps its store, so a serving
+    process can share one store between its objects.  The ticks launch no
+    hand-written kernel, so they add nothing to it.
+
     Typical loop::
 
         pool = StreamPool(computer, slots=8, chunk_size=1600)
@@ -405,8 +407,7 @@ class StreamPool:
     ):
         from .compute import ShortIntegrationFrameComputer
 
-        if aot_dir is not None:
-            raise NotImplementedError(f"StreamPool({_AOT_NOT_PORTED})")
+        self.aot = as_cache(aot_dir)  # path, AOTCache, or None
         if hasattr(computer, "init_state") and hasattr(computer, "_process_impl"):
             # a pre-built streamer; its own chunk size governs
             self._stream = computer
@@ -698,7 +699,7 @@ class StreamServer:
         How long the loop waits for more feeds before ticking with what it
         has -- the added latency ceiling under light load.
     aot_dir
-        Not ported: raises NotImplementedError.
+        Forwarded to :class:`StreamPool` (``server._pool.aot``).
     """
 
     def __init__(
@@ -711,9 +712,9 @@ class StreamServer:
         max_wait_ms: float = 2.0,
         aot_dir=None,
     ):
-        if aot_dir is not None:
-            raise NotImplementedError(f"StreamServer({_AOT_NOT_PORTED})")
-        self._pool = StreamPool(computer, slots=slots, chunk_size=chunk_size, mesh=mesh)
+        self._pool = StreamPool(
+            computer, slots=slots, chunk_size=chunk_size, mesh=mesh, aot_dir=aot_dir
+        )
         self._tick_chunks = int(tick_chunks)
         self._wait = float(max_wait_ms) / 1e3
         self._cmds = queue.SimpleQueue()

@@ -707,29 +707,6 @@ def test_parsers_take_the_reference_options(parse, monkeypatch):
     assert got == want
 
 
-@pytest.mark.parametrize("command,flags", [
-    ("signals_to_torch_feat_dir", ["--aot-dir", "store"]),
-    ("signals_to_torch_feat_dir", ["--precompile"]),
-    ("signals_to_torch_feat_dir", ["--aot-prune"]),
-    ("compute_feats_from_kaldi_tables", ["--aot-dir", "store"]),
-    ("compute_feats_from_kaldi_tables", ["--aot-prune"]),
-    ("torch_feat_dir_to_signals", ["--aot-dir", "store"]),
-    ("torch_feat_dir_to_signals", ["--aot-prune"]),
-])
-def test_aot_flags_refused(command, flags, wav_dir, tmp_path, capsys):
-    cfg = json.dumps(_config(tcli, COMPUTER))
-    out = str(tmp_path / "out")
-    positional = {
-        "signals_to_torch_feat_dir": [wav_dir, cfg, out],
-        "compute_feats_from_kaldi_tables": ["scp:" + wav_dir, "ark:" + out, cfg],
-        "torch_feat_dir_to_signals": [str(tmp_path), cfg, out],
-    }[command]
-    assert getattr(tcli, command)(positional + flags) != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP queue A item 12" in err and flags[0] in err
-    assert not os.path.exists(out)
-
-
 def test_main_dispatches_every_command(wav_dir, tmp_path):
     cfg = json.dumps(_config(tcli, COMPUTER))
     feats = str(tmp_path / "feats")

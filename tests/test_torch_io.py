@@ -60,7 +60,9 @@ def _decode(path, decoder):
 @pytest.mark.parametrize("path", SHN, ids=os.path.basename)
 def test_native_decoder_matches_python(path, monkeypatch):
     assert _native.get_shorten_lib() is not None
-    assert os.path.dirname(_native._so_path()).endswith(os.path.join("build", "speech_tpu_torch"))
+    # an entry of the default store: build/speech_tpu_torch/fp-<toolchain>/
+    store = os.path.dirname(os.path.dirname(_native._so_path()))
+    assert store.endswith(os.path.join("build", "speech_tpu_torch"))
     done_c, data_c = _decode(path, sphere._try_decode_shortened_native)
     done_py, data_py = _decode(path, lambda pre, f, data, _: sphere._decode_shortened(pre, f, data))
     assert done_c == done_py and np.array_equal(data_c, data_py)

@@ -280,11 +280,6 @@ def test_fine_bucket_lengths():
         tpar.ShardedExtractor(tc, bucket="powers-of-ten")
 
 
-def test_extractor_aot_dir_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpar.ShardedExtractor(W.stft_computer(speech_tpu_torch), aot_dir=str(tmp_path))
-
-
 @pytest.mark.parametrize("world", WORLDS)
 def test_extractor_fine_buckets(port, world):
     _close_lists(_ragged(port[world], "fine"), _jax("fine", False), TOL)

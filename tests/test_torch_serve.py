@@ -230,13 +230,6 @@ def test_feature_server_close_resolves_stragglers():
         straggler.result(timeout=30)
 
 
-def test_servers_refuse_aot_dir(tmp_path):
-    computer = _computer()
-    for cls in (FeatureServer, StreamPool, StreamServer):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            cls(computer, aot_dir=str(tmp_path))
-
-
 def test_feature_server_default_device_is_cuda():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")

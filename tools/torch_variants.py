@@ -14,6 +14,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from speech_tpu_torch import aot  # noqa: E402
 from speech_tpu_torch.ops import _build  # noqa: E402
 from speech_tpu_torch.ops import stft_kernels as K  # noqa: E402
 
@@ -54,9 +55,10 @@ def build_variants(library: str, edits: dict) -> dict:
 
 
 def use(library: str, lib) -> None:
-    """Route ``library``'s wrappers to ``lib`` from the next call on."""
-    _build._libs[library] = lib
-    K._launcher.cache_clear()
+    """Route ``library``'s wrappers to ``lib`` from the next call on (in the
+    active store's view of the libraries)."""
+    _build.load_kernels(aot.active_store())[library] = lib
+    K._bound.cache_clear()
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
