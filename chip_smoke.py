@@ -152,10 +152,22 @@ Phases (each passes or the script exits non-zero):
     TOL_FLOAT of the SI computer; ``log32`` within 2 ulp of ``torch.log``
     over [1e-6, 1e6].  ``speech_tpu_torch.vis`` is not run (the machine has
     no matplotlib);
-22. print the kernels line and, last, the device line.
+22. serving on a group (``speech_tpu_torch.serve`` on a world-size-1 NCCL
+    mesh, where rank 0 is the front and the relay runs end to end: each
+    micro-batch's header, its rows scattered to the front itself, its run,
+    its features gathered back): ``FeatureServer`` at 'double' (B2) and
+    the meshless server on the same card take phase 18's burst in turns
+    ((meshless, group, group, meshless) x 2, after a warm-up and a first
+    burst each), each row within TOL_INT8 of its utterance alone on the
+    plain digit route, their ms and audio-s/s, the dispatcher's host calls
+    and the relay's own calls printed side by side (the relay's cost); a
+    last, counted group burst launches B2 once a micro-batch; then
+    ``StreamServer`` with 16 threaded sessions on the group and without
+    a mesh, rows against ``compute_full`` within TOL_FLOAT;
+23. print the kernels line and, last, the device line.
 
 Every launch counter is set to 0 just before each driven path (phases 5,
-15, 16, 17, 18, 19 and 20) and read just after; the kernels line's
+15, 16, 17, 18, 19, 20 and 22) and read just after; the kernels line's
 launches are their sums.
 
 B2 and B4 also run on banks wider than one filter group (phases 3-4):
@@ -1036,7 +1048,11 @@ def main():
             launches[name] = launches.get(name, 0) + count
     compat_phase(dev, smi, host)
 
-    # 22. the kernels line, the card, the device line
+    # 22. both servers on a one-card NCCL group, through the relay
+    for name, count in group_serving_phase(dev, smi).items():
+        launches[name] = launches.get(name, 0) + count
+
+    # 23. the kernels line, the card, the device line
     kernels = []
     for name, e in entries.items():
         bound, bound_by = bound_ms(e)
@@ -1772,13 +1788,117 @@ def models_phase(dev, smi):
     return counted
 
 
+SERVE_UTTS, SERVE_THREADS, SERVE_BATCH = 256, 4, 64  # phases 18 and 22's burst
+
+
+def burst_inputs(dev, _cache={}):
+    """The serving burst (phases 18 and 22, made once): 256 ragged
+    utterances of 1-15 s from a seed, their seconds of audio, and each
+    utterance's features alone on the plain digit route ('double' at
+    ``fft_mode="matmul"``, which launches no kernel)."""
+    if "utts" not in _cache:
+        from speech_tpu_torch.compute import STFTFrameComputer
+
+        rng = np.random.RandomState(18)
+        utts = [(rng.randn(rng.randint(RATE, SECONDS * RATE + 1)) * 0.1).astype(np.float32)
+                for _ in range(SERVE_UTTS)]
+        ref = STFTFrameComputer(dict(BANK), device=dev, precision="double", fft_mode="matmul",
+                                **MAIN)
+        check(ref._use_kernel(dev) is None, "the reference computer takes a kernel route")
+        own, got = driven({}, lambda: [ref.compute_batch(u[None], [u.size])[0][0].cpu().numpy()
+                                        for u in utts])
+        check(not any(got.values()), f"the plain reference launched {got}")
+        _cache.update(utts=utts, audio=sum(u.size for u in utts) / RATE, own=own)
+    return _cache["utts"], _cache["audio"], _cache["own"]
+
+
+def burst(server, utts):
+    """Every utterance submitted to ``server`` from SERVE_THREADS client
+    threads (utterance ``i`` from thread ``i % SERVE_THREADS``); the
+    results in order."""
+    import threading
+
+    out = [None] * len(utts)
+
+    def client(k):
+        futs = [(i, server.submit(utts[i])) for i in range(k, len(utts), SERVE_THREADS)]
+        for i, f in futs:
+            out[i] = f.result()
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def burst_err(outs, own):
+    """Max abs of served rows against each utterance alone (inf on a
+    shape mismatch)."""
+    return max(np.abs(o - own[i]).max() if o.shape == own[i].shape else np.inf
+               for i, o in enumerate(outs))
+
+
+def host_spans(obj, names):
+    """Time the host calls ``names`` of ``obj`` (the profiler records the
+    ops of its own thread only): their ms, by name, appended as they
+    return."""
+    spans = {name: [] for name in names}
+    for name, ms in spans.items():
+        def timed(*args, _fn=getattr(obj, name), _ms=ms, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                _ms.append((time.perf_counter() - t0) * 1e3)
+        setattr(obj, name, timed)
+    return spans
+
+
+def span_summary(spans):
+    """(count, summed ms, longest ms) of each timed call."""
+    return {k: (len(v), round(sum(v), 3), round(max(v), 3) if v else 0.0)
+            for k, v in spans.items()}
+
+
+def stream_sessions(server, sigs):
+    """Every session of ``sigs`` opened on ``server`` and fed from a thread
+    of its own in ragged pieces, then closed; each session's rows."""
+    import threading
+
+    handles = [server.open_session() for _ in sigs]
+
+    def feeder(h, sig):
+        r = np.random.RandomState(h)
+        i = 0
+        while i < sig.size:
+            k = int(r.randint(400, 3200))
+            server.feed(h, sig[i: i + k])
+            i += k
+        server.close_session(h)
+
+    threads = [threading.Thread(target=feeder, args=(h, s)) for h, s in zip(handles, sigs)]
+    for t in threads:
+        t.start()
+    rows = [np.concatenate(list(server.iter_results(h))) for h in handles]
+    for t in threads:
+        t.join()
+    return rows
+
+
+def stream_err(rows, sigs, plain):
+    err = 0.0
+    for i, (out, sig) in enumerate(zip(rows, sigs)):
+        want = plain.compute_full(sig)
+        check(out.shape == want.shape, f"StreamServer session {i}: {out.shape} != {want.shape}")
+        err = max(err, np.abs(out - want).max())
+    return err
+
+
 def serving_phase(dev, smi):
     """Phase 18: FeatureServer through B2 and StreamServer with threaded
     sessions.  Returns the launches of the driven path (the burst)."""
-    import threading
-
-    import torch
-
     from speech_tpu_torch.compute import STFTFrameComputer
     from speech_tpu_torch.serve import FeatureServer, StreamServer
 
@@ -1786,62 +1906,20 @@ def serving_phase(dev, smi):
         return STFTFrameComputer(dict(BANK), device=dev, **{**MAIN, **kw})
 
     counted = {}
-    rng = np.random.RandomState(18)
     n_max = SECONDS * RATE
-    utts = [(rng.randn(rng.randint(RATE, n_max + 1)) * 0.1).astype(np.float32)
-            for _ in range(256)]
-    audio = sum(u.size for u in utts) / RATE
-    ref = computer(precision="double", fft_mode="matmul")
-    check(ref._use_kernel(dev) is None, "the reference computer takes a kernel route")
-    own, got = driven({}, lambda: [ref.compute_batch(u[None], [u.size])[0][0].cpu().numpy()
-                                    for u in utts])
-    check(not any(got.values()), f"the plain reference launched {got}")
+    utts, audio, own = burst_inputs(dev)
+    rng = np.random.RandomState(181)
     comp = computer(precision="double")
     comp.params
-
-    def burst(server):
-        out = [None] * len(utts)
-
-        def client(k):
-            futs = [(i, server.submit(utts[i])) for i in range(k, len(utts), 4)]
-            for i, f in futs:
-                out[i] = f.result()
-
-        threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        return out
-
-    def err_of(outs):
-        return max(np.abs(o - own[i]).max() if o.shape == own[i].shape else np.inf
-                   for i, o in enumerate(outs))
-
-    def host_spans(extractor):
-        """Time the dispatcher's two host calls on ``extractor`` (the
-        profiler records the ops of its own thread only): their ms, by
-        name, appended as they return."""
-        spans = {"_dispatch": [], "_collect": []}
-        for name, ms in spans.items():
-            def timed(*args, _fn=getattr(extractor, name), _ms=ms, **kw):
-                t0 = time.perf_counter()
-                try:
-                    return _fn(*args, **kw)
-                finally:
-                    _ms.append((time.perf_counter() - t0) * 1e3)
-            setattr(extractor, name, timed)
-        return spans
 
     def traced_burst(server, spans):
         for ms in spans.values():
             ms.clear()
-        out = traced(lambda: burst(server))
-        return out + ({k: (len(v), round(sum(v), 3), round(max(v), 3))
-                       for k, v in spans.items()},)
+        out = traced(lambda: burst(server, utts))
+        return out + (span_summary(spans),)
 
-    with FeatureServer(comp, max_batch=64, max_wait_ms=2.0) as server:
-        spans = host_spans(server._extractor)
+    with FeatureServer(comp, max_batch=SERVE_BATCH, max_wait_ms=2.0) as server:
+        spans = host_spans(server._extractor, ("_dispatch", "_collect"))
         server.warmup([n_max])
         # burst 1 (the first after the warm-up) and burst 2, each traced:
         # device busy and wall time of the same burst, and the dispatcher's
@@ -1850,17 +1928,18 @@ def serving_phase(dev, smi):
         # burst 3, untraced: the launches counted from 0, the throughput
         batches = server.stats["batches"]
         t0 = time.perf_counter()
-        outs, launched = driven(counted, lambda: burst(server))
+        outs, launched = driven(counted, lambda: burst(server, utts))
         wall = time.perf_counter() - t0
         stats = dict(server.stats)
-        err = max(err_of(t[0]) for t in traces + [(outs,)])
+        err = max(burst_err(t[0], own) for t in traces + [(outs,)])
         lone = []
         for i in range(100):
             u = utts[i % 16]
             t1 = time.perf_counter()
             server.extract(u)
             lone.append((time.perf_counter() - t1) * 1e3)
-    print(f"FeatureServer at 'double', 4 client threads x 64 ragged utterances of 1-{SECONDS} s "
+    print(f"FeatureServer at 'double', {SERVE_THREADS} client threads x "
+          f"{SERVE_UTTS // SERVE_THREADS} ragged utterances of 1-{SECONDS} s "
           f"({audio:.0f} s of audio) a burst: max abs vs each utterance alone on the plain digit "
           f"route {err:.3e} (tol {TOL_INT8:g}); stats after 3 bursts {stats}; burst 3 "
           f"(untraced): stft_feats_int8 x{launched['stft_feats_int8']} for "
@@ -1883,39 +1962,125 @@ def serving_phase(dev, smi):
     plain = computer()
     sigs = [(rng.randn(rng.randint(3 * RATE, 6 * RATE)) * 0.1).astype(np.float32)
             for _ in range(STREAM_SESSIONS)]
-    results = {}
     t0 = time.perf_counter()
     with StreamServer(plain, slots=STREAM_SESSIONS, chunk_size=STREAM_CHUNK) as server:
-        handles = [server.open_session() for _ in sigs]
-
-        def feeder(h, sig):
-            r = np.random.RandomState(h)
-            i = 0
-            while i < sig.size:
-                k = int(r.randint(400, 3200))
-                server.feed(h, sig[i: i + k])
-                i += k
-            server.close_session(h)
-
-        threads = [threading.Thread(target=feeder, args=(h, s)) for h, s in zip(handles, sigs)]
-        for t in threads:
-            t.start()
-        for h in handles:
-            results[h] = list(server.iter_results(h))
-        for t in threads:
-            t.join()
+        rows = stream_sessions(server, sigs)
     wall = time.perf_counter() - t0
-    err = 0.0
-    for h, sig in zip(handles, sigs):
-        out = np.concatenate(results[h])
-        want = plain.compute_full(sig)
-        check(out.shape == want.shape, f"StreamServer session {h}: {out.shape} != {want.shape}")
-        err = max(err, np.abs(out - want).max())
+    err = stream_err(rows, sigs, plain)
     audio = sum(s.size for s in sigs) / RATE
     print(f"StreamServer {STREAM_SESSIONS} threaded sessions of StreamingSTFT ({audio:.0f} s of "
           f"audio, ragged feeds): rows vs compute_full max abs {err:.3e} (tol {TOL_FLOAT:g}); "
           f"{wall * 1e3:.1f} ms wall [{smi}]", flush=True)
     check(err <= TOL_FLOAT, f"StreamServer vs compute_full: {err}")
+    return counted
+
+
+def group_serving_phase(dev, smi):
+    """Phase 22: both servers on a world-size-1 NCCL group, through the
+    relay (rank 0, the front, sends each micro-batch's header, scatters its
+    rows to itself, runs them and gathers them back), in turns with the
+    meshless servers on the same card.  Returns the launches of the driven
+    path (a group burst)."""
+    import torch.distributed as dist
+
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.compute import STFTFrameComputer
+    from speech_tpu_torch.parallel import multihost
+    from speech_tpu_torch.serve import FeatureServer, StreamServer
+
+    def computer(**kw):
+        return STFTFrameComputer(dict(BANK), device=dev, **{**MAIN, **kw})
+
+    counted = {}
+    utts, audio, own = burst_inputs(dev)
+    comp = computer(precision="double")
+    tmp = tempfile.mkdtemp()
+    multihost.initialize(store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                         num_processes=1, process_id=0, backend="nccl")
+    try:
+        mesh = par.make_mesh(("data",))
+        servers = {"meshless": FeatureServer(comp, max_batch=SERVE_BATCH, max_wait_ms=2.0),
+                   "group": FeatureServer(comp, mesh=mesh, max_batch=SERVE_BATCH,
+                                          max_wait_ms=2.0)}
+        check(servers["group"]._relay is not None and servers["meshless"]._relay is None,
+              "the group server takes no relay")
+        spans = {k: host_spans(srv, ("_launch", "_readback")) for k, srv in servers.items()}
+        relay_spans = host_spans(servers["group"]._relay, ("send", "scatter", "agree", "gather"))
+        for srv in servers.values():  # the first bursts pay pinned host allocations
+            srv.warmup([SECONDS * RATE])
+            burst(srv, utts)
+        walls = {k: [] for k in servers}
+        err = 0.0
+        for ms in [*spans["meshless"].values(), *spans["group"].values(),
+                   *relay_spans.values()]:
+            ms.clear()
+        for name in ("meshless", "group", "group", "meshless") * 2:
+            t0 = time.perf_counter()
+            outs = burst(servers[name], utts)
+            walls[name].append(round((time.perf_counter() - t0) * 1e3, 3))
+            err = max(err, burst_err(outs, own))
+        calls = {k: span_summary(v) for k, v in spans.items()}
+        relay_calls = span_summary(relay_spans)
+        group = servers["group"]
+        batches = group.stats["batches"]
+        outs, launched = driven(counted, lambda: burst(group, utts))
+        err = max(err, burst_err(outs, own))
+        stats = dict(group.stats)
+        for srv in servers.values():
+            srv.close()
+        ms = {k: statistics.median(v) for k, v in walls.items()}
+        print(f"FeatureServer on a world-size-1 NCCL group (the relay: header, scatter to the "
+              f"front, run, gather to the front) against the meshless server on the same card, "
+              f"{SERVE_UTTS} ragged utterances of 1-{SECONDS} s ({audio:.0f} s of audio) from "
+              f"{SERVE_THREADS} threads, in turns (meshless, group, group, meshless) x 2: group "
+              f"{walls['group']} ms (median {ms['group']:.3f}, "
+              f"{audio / ms['group'] * 1e3:.0f} audio-s/s), meshless {walls['meshless']} ms "
+              f"(median {ms['meshless']:.3f}, {audio / ms['meshless'] * 1e3:.0f} audio-s/s), "
+              f"group - meshless {ms['group'] - ms['meshless']:.3f} ms a burst; over those "
+              f"bursts the dispatcher's host calls (count, ms, longest ms) {calls} and the "
+              f"group's relay calls {relay_calls}; a last, "
+              f"counted group burst: stft_feats_int8 x{launched['stft_feats_int8']} for "
+              f"{stats['batches'] - batches} micro-batches; max abs vs each utterance alone on "
+              f"the plain digit route {err:.3e} (tol {TOL_INT8:g}) [{smi}]", flush=True)
+        check(err <= TOL_INT8, f"the group FeatureServer vs the plain route: {err}")
+        check(stats["failed"] == 0 and stats["completed"] == 6 * len(utts),
+              f"the group FeatureServer's stats {stats}")
+        check(launched["stft_feats_int8"] == stats["batches"] - batches > 0,
+              f"group B2 launches {launched['stft_feats_int8']} != batches "
+              f"{stats['batches'] - batches}")
+
+        # StreamServer: 16 threaded sessions over the same group and without
+        # a mesh, in turns, each after its warm-up (on the group the first
+        # warm-up pays the slot gather's first call)
+        plain = computer()
+        rng = np.random.RandomState(22)
+        sigs = [(rng.randn(rng.randint(3 * RATE, 6 * RATE)) * 0.1).astype(np.float32)
+                for _ in range(STREAM_SESSIONS)]
+        walls, warm = {"group": [], "meshless": []}, {"group": [], "meshless": []}
+        errs = {"group": 0.0, "meshless": 0.0}
+        for name in ("meshless", "group", "group", "meshless"):
+            kw = dict(mesh=mesh) if name == "group" else {}
+            with StreamServer(plain, slots=STREAM_SESSIONS, chunk_size=STREAM_CHUNK, **kw) as srv:
+                check((srv._relay is not None) == (name == "group"), f"{name} StreamServer relay")
+                t0 = time.perf_counter()
+                srv.warmup()
+                warm[name].append(round((time.perf_counter() - t0) * 1e3, 3))
+                t0 = time.perf_counter()
+                rows = stream_sessions(srv, sigs)
+                walls[name].append(round((time.perf_counter() - t0) * 1e3, 3))
+            errs[name] = max(errs[name], stream_err(rows, sigs, plain))
+        audio = sum(s.size for s in sigs) / RATE
+        print(f"StreamServer {STREAM_SESSIONS} threaded sessions of StreamingSTFT ({audio:.0f} s "
+              f"of audio, ragged feeds), in turns: on the world-size-1 NCCL group rows vs "
+              f"compute_full max abs {errs['group']:.3e} (tol {TOL_FLOAT:g}), {walls['group']} ms "
+              f"wall after warm-ups of {warm['group']} ms; without a mesh {errs['meshless']:.3e}, "
+              f"{walls['meshless']} ms after warm-ups of {warm['meshless']} ms [{smi}]",
+              flush=True)
+        for name, e in errs.items():
+            check(e <= TOL_FLOAT, f"{name} StreamServer vs compute_full: {e}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
     return counted
 
 

@@ -4,18 +4,25 @@ The PyTorch counterpart of :mod:`speech_tpu.ops.framing`.  A signal is
 padded by symmetric reflection on both sides (:func:`pad_signal_full` when
 every row is valid to its end, :func:`pad_signal` for per-row lengths) and
 then framed with a strided view (:func:`frame_padded`).  The fused kernels
-read the padded rows directly and never materialise the frames.
+read the padded rows directly and never materialise the frames.  The
+index-gather form (:func:`frame_signal`) and the host forms
+(:func:`pad_signal_np`, :func:`frame_positions_np`) are kept as the JAX
+package keeps them.
 """
 
+import numpy as np
 import torch
 
 __all__ = [
     "frame_count",
     "frame_count_np",
     "frame_padded",
+    "frame_positions_np",
+    "frame_signal",
     "left_pad_width",
     "pad_signal",
     "pad_signal_full",
+    "pad_signal_np",
     "reflect_index",
 ]
 
@@ -58,6 +65,29 @@ def reflect_index(pos, length):
     period = 2 * length
     m = torch.remainder(pos, period)  # floor-mod: negatives land in range
     return torch.where(m < length, m, period - 1 - m)
+
+
+def frame_signal(signal, sig_len, max_frames: int, frame_length: int, frame_shift: int,
+                 pad_left: int):
+    """Gather ``(max_frames, frame_length)`` frames out of a 1-D buffer whose
+    first ``sig_len`` samples are valid (an int or a 0-d tensor).
+
+    Frame ``k`` covers positions ``k * frame_shift - pad_left + t`` for
+    ``t`` in ``[0, frame_length)``; positions outside ``[0, sig_len)``
+    resolve by symmetric reflection, as ``numpy.pad(..., "symmetric")``
+    would pad them, without materialising the pad.  Rows past the true
+    frame count hold reflected garbage for the caller to mask.
+    """
+    device = signal.device
+    k = torch.arange(max_frames, device=device)[:, None] * frame_shift - pad_left
+    pos = k + torch.arange(frame_length, device=device)[None, :]
+    safe_len = torch.clamp_min(torch.as_tensor(sig_len, device=device), 1)
+    return signal[reflect_index(pos, safe_len)]
+
+
+def frame_positions_np(num_frames: int, frame_length: int, frame_shift: int):
+    """Host-side frame start positions (padded coordinates)."""
+    return np.arange(num_frames) * frame_shift
 
 
 def pad_signal_full(signal, frame_length: int, pad_left: int, min_len: int = 0):
@@ -116,6 +146,32 @@ def pad_signal(signal, sig_len, frame_length: int, frame_shift: int, pad_left: i
     start = torch.clamp(start, 0, total - frame_length)
     padded.scatter_(1, start[:, None] + k, rtail)
     return padded[0] if single else padded
+
+
+def pad_signal_np(
+    signal: np.ndarray,
+    sig_len: int,
+    frame_length: int,
+    frame_shift: int,
+    pad_left: int,
+    out: np.ndarray = None,
+):
+    """The symmetrically padded stream for static framing, on the host.
+
+    Writes ``[reflect(pad_left) | signal | reflect(pad_right)]`` into
+    ``out`` (or a new array), ``pad_right`` completing the last frame as
+    the reference's batch framing does (reference: compute.py:596-600).
+    Returns ``(padded, num_frames)``, ``padded`` being ``out`` itself
+    when given.
+    """
+    num_frames = frame_count_np(sig_len, frame_length, frame_shift)
+    total = max(0, (num_frames - 1) * frame_shift + frame_length)
+    pad_right = max(0, total - pad_left - sig_len)
+    padded = np.pad(signal[:sig_len], (pad_left, pad_right), "symmetric")
+    if out is not None:
+        out[: len(padded)] = padded
+        return out, num_frames
+    return padded, num_frames
 
 
 def frame_padded(padded, max_frames: int, frame_length: int, frame_shift: int):

@@ -250,37 +250,54 @@ class ShardedExtractor:
         n = len(signals)
         if n == 0:
             return None, None, 0
+        lengths, max_len, buf_dtype = self._host_batch(signals, min_batch)
+        start, per = self._row_block(lengths.size)
+        rows = self._pad_rows(signals, lengths, max_len, buf_dtype, start, per)
+        feats, counts = self._run_block(rows, lengths, max_len, start)
+        return (*self._wrap(feats, counts), n)
+
+    def _host_batch(self, signals: Sequence[np.ndarray], min_batch: int = 0):
+        """The host side of a global batch of ``signals``: every row's
+        length (the padding rows' ``frame_length``), the bucket length, and
+        the buffer type (all-compact-integer inputs, int16 PCM, cross to
+        the device as they are and are upcast there: half the bytes of
+        float32)."""
         c = self._computer
-        lengths = np.array([len(s) for s in signals], dtype=np.int64)
-        max_len = self.bucket_len(int(lengths.max()))
+        n = len(signals)
         m = self.batch_multiple
-        batch = -(-max(n, min_batch) // m) * m
-        pad_lengths = np.full(batch, c.frame_length, dtype=np.int64)
-        pad_lengths[:n] = lengths
-        full = self._is_full(pad_lengths, max_len)
-        # all-compact-integer inputs (int16 PCM) cross to the device as
-        # they are and are upcast there: half the bytes of float32
+        lengths = np.full(-(-max(n, min_batch) // m) * m, c.frame_length, dtype=np.int64)
+        lengths[:n] = [len(s) for s in signals]
+        max_len = self.bucket_len(int(lengths[:n].max()))
         if all(_compact_transfer(np.asarray(s).dtype) for s in signals):
-            buf_dtype = torch.int16
-        else:
-            buf_dtype = c._dtype
-        start, per = self._row_block(batch)
-        dev = self._computer.device
-        pin = dev.type == "cuda"
+            return lengths, max_len, torch.int16
+        return lengths, max_len, c._dtype
+
+    def _pad_rows(self, signals, lengths, max_len: int, buf_dtype, start: int, per: int):
+        """Rows ``[start, start + per)`` of the padded global batch in a
+        host buffer (pinned on a GPU); rows past ``signals`` are zeros."""
+        pin = self._computer.device.type == "cuda"
         buf = torch.empty((per, max_len), dtype=buf_dtype, pin_memory=pin)
         rows = buf.numpy()
+        n = len(signals)
         for r, i in enumerate(range(start, start + per)):
             k = lengths[i] if i < n else 0
             if k:
                 rows[r, :k] = signals[i]
             rows[r, k:] = 0
-        lens = torch.from_numpy(pad_lengths[start : start + per])
-        if pin:
+        return buf
+
+    def _run_block(self, rows, lengths, max_len: int, start: int):
+        """Queue the features of one process's row block ``rows`` (host or
+        device), the rows ``[start, start + len(rows))`` of a global batch
+        whose row lengths are ``lengths``."""
+        dev = self._computer.device
+        full = self._is_full(lengths, max_len)
+        lens = torch.from_numpy(lengths[start: start + rows.shape[0]])
+        if dev.type == "cuda":
             lens = lens.pin_memory()
-        feats, counts = self._run(
-            buf.to(dev, non_blocking=True), lens.to(dev, non_blocking=True), full
+        return self._run(
+            rows.to(dev, non_blocking=True), lens.to(dev, non_blocking=True), full
         )
-        return (*self._wrap(feats, counts), n)
 
     @staticmethod
     def _collect(feats, counts, n):

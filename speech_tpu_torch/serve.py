@@ -22,6 +22,13 @@ requests:
   a background loop coalesces feeds, ticks the pool, and delivers feature
   blocks to per-session queues.
 
+Both servers serve on a mesh of several processes (one card each): every
+rank constructs the server with the same arguments, rank 0 (the front)
+alone takes requests and decides each micro-batch or tick, and the other
+ranks (followers) run their row or slot block of each step in a background
+thread (:mod:`speech_tpu_torch.parallel._relay`).  A follower's client
+methods raise; its ``close`` returns once the front's close reaches it.
+
 Device work runs on the computer's (or streamer's) own device, named
 explicitly: a server thread never relies on the thread's current device.
 """
@@ -38,10 +45,12 @@ import torch
 
 from .aot import as_cache
 from .parallel import ShardedExtractor
+from .parallel import _relay
 from .parallel.mesh import axis_size, global_tensor
 from .streaming import StreamingSI, StreamingSTFT, _tree_map
 
 __all__ = ["FeatureServer", "StreamPool", "StreamServer"]
+
 
 def _device_scope(device: torch.device):
     """Make ``device`` the thread's current card inside the block (a new
@@ -49,6 +58,38 @@ def _device_scope(device: torch.device):
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+def _named(device: torch.device) -> torch.device:
+    """``device`` with its card named: a bare ``"cuda"`` is the
+    constructing thread's current card (one process a card on a mesh),
+    which a server thread must not read as its own card 0."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _relay_of(mesh, rows: int = 0):
+    """The relay of a server on ``mesh`` (on a mesh of one process, the
+    front's alone); None without a mesh."""
+    return None if mesh is None else _relay.Relay(mesh, rows=rows)
+
+
+def _follower_error(name: str) -> RuntimeError:
+    return RuntimeError(
+        f"{name} on a follower: on a mesh of several processes only rank 0 "
+        "takes requests"
+    )
+
+
+class _Warmup:
+    """A warm-up the dispatcher runs between micro-batches."""
+
+    __slots__ = ("lengths", "tiers", "dtype", "fut")
+
+    def __init__(self, lengths, tiers, dtype):
+        self.lengths, self.tiers, self.dtype = lengths, tiers, dtype
+        self.fut = Future()
 
 
 class FeatureServer:
@@ -59,13 +100,15 @@ class FeatureServer:
     computer
         A frame computer (STFT or SI) of this package.
     mesh
-        Optional device mesh of this one process (the micro-batches run
-        through the extractor on the mesh).  A mesh over several processes
-        is refused: each process's dispatcher coalesces requests by their
-        arrival times, so the processes' batches, and with them their
-        collectives, would not match; across processes, drive
-        :meth:`~speech_tpu_torch.parallel.ShardedExtractor.extract_iter`
-        with the same batches on every process instead.
+        Optional device mesh: each micro-batch shards over its data axis,
+        every process running its row block on its own card.  On a mesh of
+        several processes every rank constructs the server with the same
+        arguments; rank 0 alone takes requests and decides each
+        micro-batch, which it relays to the other ranks (their client
+        methods raise ``RuntimeError``).  The mesh must span the process
+        group, and while the server runs its dispatcher runs collectives
+        on the default group: the caller runs none of its own there
+        until ``close``.
     max_batch
         Largest micro-batch dispatched to the device at once.
     max_wait_ms
@@ -100,6 +143,7 @@ class FeatureServer:
     stats
         Monotonic counters: ``submitted``, ``completed``, ``failed``,
         ``rejected`` (admission control), ``batches`` (device dispatches).
+        On a mesh of several processes, the front's.
     """
 
     def __init__(
@@ -118,17 +162,15 @@ class FeatureServer:
             raise ValueError(
                 f"pad_batches must be True, False, or 'pow2'; got {pad_batches!r}"
             )
-        if mesh is not None and mesh.size() > 1:
-            raise NotImplementedError(
-                "FeatureServer takes a mesh of one process: its timing-based "
-                "micro-batches would differ between processes"
-            )
         self._extractor = ShardedExtractor(
             computer, mesh, bucket=bucket, postprocessors=postprocessors,
             aot_dir=aot_dir,
         )
-        self._device = computer.device
+        self._device = _named(computer.device)
         self._max_batch = int(max_batch)
+        m = self._extractor.batch_multiple
+        self._relay = _relay_of(mesh, rows=-(-self._max_batch // m) * m)
+        self._seq = 0  # the front's last relayed micro-batch
         self._pad_batches = pad_batches
         self._max_wait = float(max_wait_ms) / 1e3
         self._max_pending = None if max_pending is None else int(max_pending)
@@ -139,10 +181,17 @@ class FeatureServer:
         # request can slip behind the stop
         self._lock = threading.Lock()
         self.stats = {"submitted": 0, "completed": 0, "failed": 0, "rejected": 0, "batches": 0}
-        self._worker = threading.Thread(target=self._run, name="speech-tpu-serve", daemon=True)
+        follower = self._relay is not None and not self._relay.front
+        self._worker = threading.Thread(
+            target=self._follow if follower else self._run, name="speech-tpu-serve", daemon=True
+        )
         self._worker.start()
 
     # -- client side -------------------------------------------------------
+
+    def _check_front(self, name: str) -> None:
+        if self._relay is not None and not self._relay.front:
+            raise _follower_error(name)
 
     def submit(self, signal: np.ndarray) -> Future:
         """Enqueue one 1-D signal; resolves to ``(num_frames, C)``.
@@ -151,6 +200,7 @@ class FeatureServer:
         signal must never poison the unrelated requests it would have
         coalesced with in a micro-batch.
         """
+        self._check_front("submit")
         signal = np.asarray(signal)
         if signal.ndim != 1:
             raise ValueError(f"signal must be 1-D, got shape {signal.shape}")
@@ -186,8 +236,10 @@ class FeatureServer:
         so that one-time costs (kernel builds, packed weights, cuBLAS and
         cuDNN handles, and the pinned host buffers of the two batches the
         dispatcher's double buffer holds at once) land here rather than
-        on the first requests.  Warm-up batches go straight to the
-        extractor, not through the dispatcher queue."""
+        on the first requests.  Blocking; the dispatcher runs it between
+        micro-batches (on a mesh of several processes every rank runs it),
+        and its batches count in no stat."""
+        self._check_front("warmup")
         if batch is not None:
             tiers = [int(batch)]
         elif self._pad_batches == "pow2":
@@ -201,20 +253,27 @@ class FeatureServer:
             tiers = [1]
         else:
             tiers = [self._max_batch]
+        job = _Warmup(list(lengths), tiers, dtype)
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("server is closed")
+            self._queue.put(job)
+        job.fut.result()
+
+    def _warm(self, job: _Warmup) -> None:
         done = set()
-        for n in lengths:
+        for n in job.lengths:
             n = max(int(n), 1)
             key = self._extractor.bucket_len(n)
             if key in done:
                 continue
             done.add(key)
-            for t in tiers:
-                zeros = [np.zeros(n, dtype)] * t
+            for t in job.tiers:
+                zeros = [np.zeros(n, job.dtype)] * t
                 # two in flight before the first readback, as under load
-                inflight = [self._extractor._dispatch(zeros, min_batch=self._min_batch(t))
-                            for _ in range(2)]
+                inflight = [self._launch(zeros, self._min_batch(t)) for _ in range(2)]
                 for disp in inflight:
-                    self._extractor._collect(*disp)
+                    self._readback(disp)
 
     def _min_batch(self, n: int) -> int:
         """Batch-dim padding target for an ``n``-request micro-batch."""
@@ -228,7 +287,8 @@ class FeatureServer:
         Requests submitted before the close are served; the lock makes a
         racing submit either land before the stop sentinel or raise.  Any
         item somehow found behind the sentinel after the dispatcher exits
-        gets a RuntimeError rather than a future that never resolves.
+        gets a RuntimeError rather than a future that never resolves.  On
+        a follower, waits until the front's close reaches it.
         """
         with self._lock:
             if self._closed:
@@ -241,7 +301,9 @@ class FeatureServer:
                 item = self._queue.get_nowait()
             except queue.Empty:
                 return
-            if item is not None:
+            if isinstance(item, _Warmup):
+                item.fut.set_exception(RuntimeError("server is closed"))
+            elif item is not None:
                 self._done(item[1], exc=RuntimeError("server is closed"))
 
     def __enter__(self):
@@ -253,56 +315,140 @@ class FeatureServer:
     # -- dispatcher --------------------------------------------------------
 
     def _run(self) -> None:
+        with _device_scope(self._device):
+            try:
+                self._serve()
+            finally:
+                if self._relay is not None:
+                    self._relay.send(_relay.STOP)
+
+    def _serve(self) -> None:
         """Dispatcher loop, double-buffered under sustained load.
 
-        Dispatch (``ShardedExtractor._dispatch``) queues the device work
-        without waiting for it, while the readback (``_collect``) waits.
+        Dispatch (``_launch``) queues the device work without waiting for
+        it, while the readback (``_readback``) waits.
         Holding one in-flight batch lets the host padding of batch ``i+1``
         overlap the device work of batch ``i``; with an empty queue the
         in-flight batch is read back at once, so a lone request never
-        waits on a successor that may not come.
+        waits on a successor that may not come.  A warm-up or the stop met
+        while filling a batch is held until that batch is dispatched.
         """
-        with _device_scope(self._device):
-            pending = None  # (batch, dispatch result) awaiting its readback
-            while True:
-                item = self._queue.get()
-                if item is None:
-                    if pending is not None:
-                        self._resolve(pending)
-                    return
-                batch = [item]
-                deadline = time.monotonic() + self._max_wait
-                stop = False
-                while len(batch) < self._max_batch:
-                    timeout = deadline - time.monotonic()
-                    if timeout <= 0:
-                        break
-                    try:
-                        nxt = self._queue.get(timeout=timeout)
-                    except queue.Empty:
-                        break
-                    if nxt is None:
-                        stop = True
-                        break
-                    batch.append(nxt)
-                pending, prev = (batch, self._dispatch(batch)), pending
-                if prev is not None:
-                    self._resolve(prev)
-                if stop or self._queue.empty():
+        pending = None  # (batch, dispatch result) awaiting its readback
+        held = None
+        while True:
+            item, held = (self._queue.get() if held is None else held), None
+            if item is None or isinstance(item, _Warmup):
+                if pending is not None:
                     self._resolve(pending)
                     pending = None
-                if stop:
+                if item is None:
                     return
+                try:
+                    self._warm(item)
+                except Exception as e:  # noqa: BLE001 -- to the caller
+                    item.fut.set_exception(e)
+                else:
+                    item.fut.set_result(None)
+                continue
+            batch = [item]
+            deadline = time.monotonic() + self._max_wait
+            while len(batch) < self._max_batch:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if nxt is None or isinstance(nxt, _Warmup):
+                    held = nxt
+                    break
+                batch.append(nxt)
+            disp = self._dispatch(batch)
+            prev, pending = pending, (None if disp is None else (batch, disp))
+            if prev is not None:
+                self._resolve(prev)
+            if disp is None:
+                self._retry_individually(batch)
+            elif held is not None or self._queue.empty():
+                self._resolve(pending)
+                pending = None
+
+    def _launch(self, signals, min_batch: int):
+        """Queue one micro-batch on every rank; raises if any rank's part
+        failed.  On a mesh of several processes the front sends its header
+        and rows, and the result carries its sequence number."""
+        if self._relay is None:
+            return self._extractor._dispatch(signals, min_batch=min_batch)
+        ex = self._extractor
+        lengths, max_len, buf_dtype = ex._host_batch(signals, min_batch)
+        rows = ex._pad_rows(signals, lengths, max_len, buf_dtype, 0, lengths.size)
+        self._seq += 1
+        self._relay.send(_relay.BATCH, self._seq, max_len, int(buf_dtype == torch.int16),
+                         len(signals), lengths)
+        return (*self._relayed(lengths, max_len, buf_dtype, len(signals), rows), self._seq)
+
+    def _relayed(self, lengths, max_len: int, buf_dtype, n: int, rows=None):
+        """This rank's part of a relayed micro-batch: its row block from
+        the front (``rows``: the front's whole padded batch on the host),
+        its features queued, and every rank's agreement that its part ran;
+        raises if any rank's part failed."""
+        ex, relay = self._extractor, self._relay
+        start, per = ex._row_block(lengths.size)
+        dev = self._device
+        blocks = None
+        if rows is not None:
+            rows = rows.to(dev, non_blocking=True)
+            blocks = [rows[b * per: (b + 1) * per] for b in range(ex.batch_multiple)]
+        block = relay.scatter(torch.empty((per, max_len), dtype=buf_dtype, device=dev), blocks)
+        err = None
+        try:
+            feats, counts = ex._run_block(block, lengths, max_len, start)
+        except Exception as e:  # noqa: BLE001 -- agreed on below
+            err = e
+        if not relay.agree(err is None):
+            raise err or RuntimeError("the micro-batch failed on another rank")
+        return feats, counts, n
+
+    def _readback(self, disp):
+        """A micro-batch's rows, read back to the host (on a mesh of
+        several processes, gathered to the front)."""
+        if self._relay is None:
+            return self._extractor._collect(*disp)
+        feats, counts, n, seq = disp
+        self._relay.send(_relay.COLLECT, seq)
+        return self._gather(feats, counts, n)
+
+    def _gather(self, feats, counts, n):
+        feats, counts = self._relay.gather(feats), self._relay.gather(counts)
+        if feats is None:
+            return None
+        return self._extractor._collect(feats, counts, n)
+
+    def _follow(self) -> None:
+        """A follower's loop: run each micro-batch the front relays, keep
+        it until the front collects it, until the front stops."""
+        inflight = {}
+        with _device_scope(self._device):
+            while True:
+                op, seq, max_len, buf_type, n, lengths = self._relay.recv()
+                if op == _relay.STOP:
+                    return
+                if op == _relay.COLLECT:
+                    self._gather(*inflight.pop(seq))
+                    continue
+                buf_dtype = torch.int16 if buf_type else self._extractor._computer._dtype
+                try:
+                    inflight[seq] = self._relayed(lengths, max_len, buf_dtype, n)
+                except Exception:  # noqa: BLE001 -- the front retries or fails it
+                    pass
 
     def _dispatch(self, batch):
-        """Queue one micro-batch; None on failure (the batch's futures are
-        then already resolved by individual retry)."""
+        """Queue one micro-batch; None on failure (the caller then retries
+        its requests one by one)."""
         try:
-            disp = self._extractor._dispatch(
-                [s for s, _ in batch], min_batch=self._min_batch(len(batch))
-            )
+            disp = self._launch([s for s, _ in batch], self._min_batch(len(batch)))
         except Exception:  # noqa: BLE001 -- isolate the bad request(s)
-            self._retry_individually(batch)
             return None
         with self._lock:
             self.stats["batches"] += 1
@@ -310,10 +456,8 @@ class FeatureServer:
 
     def _resolve(self, entry) -> None:
         batch, disp = entry
-        if disp is None:
-            return  # dispatch already failed; futures resolved
         try:
-            outs = self._extractor._collect(*disp)
+            outs = self._readback(disp)
         except Exception:  # noqa: BLE001 -- isolate the bad request(s)
             self._retry_individually(batch)
             return
@@ -327,7 +471,7 @@ class FeatureServer:
         # elsewhere)
         for sig, fut in batch:
             try:
-                out = self._extractor.extract([sig])[0]
+                out = self._readback(self._launch([sig], 0))[0]
             except Exception as e:  # noqa: BLE001 -- to the caller
                 self._done(fut, exc=e)
             else:
@@ -667,6 +811,16 @@ class StreamPool:
         )
 
 
+def _settle(fut, result=None, exc=None) -> None:
+    """Resolve a loop command's future (a follower's commands have none)."""
+    if fut is None:
+        return
+    if exc is not None:
+        fut.set_exception(exc)
+    else:
+        fut.set_result(result)
+
+
 class StreamServer:
     """Thread-safe streaming front end around a :class:`StreamPool`.
 
@@ -687,6 +841,16 @@ class StreamServer:
 
     ``iter_results`` may also run concurrently with feeding (it blocks
     until blocks arrive and stops after ``close_session``'s flush).
+
+    On a mesh of several processes every rank constructs the server with
+    the same arguments.  Rank 0 alone takes sessions: each loop iteration
+    it sends its ordered commands (warm-up, open, feed with the samples,
+    close) and the tick's ``max_chunks`` to the other ranks, whose loop
+    applies them to its own pool in the same order (handles agree: a
+    pool opens them in order) and ticks its block of the slots.  A tick
+    that fails on any rank fails its sessions on every rank.  The other
+    ranks' client methods raise ``RuntimeError``; their ``close`` returns
+    once the front's close reaches them.
 
     Parameters
     ----------
@@ -715,14 +879,18 @@ class StreamServer:
         self._pool = StreamPool(
             computer, slots=slots, chunk_size=chunk_size, mesh=mesh, aot_dir=aot_dir
         )
+        self._device = _named(self._pool._device)
+        self._relay = _relay_of(mesh)
         self._tick_chunks = int(tick_chunks)
         self._wait = float(max_wait_ms) / 1e3
         self._cmds = queue.SimpleQueue()
         self._results = {}
         self._closed = False
         self._lock = threading.Lock()
+        follower = self._relay is not None and not self._relay.front
         self._worker = threading.Thread(
-            target=self._run, name="speech-tpu-stream-serve", daemon=True
+            target=self._follow if follower else self._run, name="speech-tpu-stream-serve",
+            daemon=True,
         )
         self._worker.start()
 
@@ -730,9 +898,10 @@ class StreamServer:
 
     def warmup(self, depths=None, occupancies=()) -> None:
         """Run the tick at its depths before traffic arrives (blocking;
-        inside the loop thread -- the pool is not thread-safe).  ``depths``
-        defaults to the power-of-two tiers up to ``tick_chunks``;
-        ``occupancies`` forwards to :meth:`StreamPool.warmup`."""
+        inside the loop thread -- the pool is not thread-safe), and on a
+        mesh one gather of the slots.  ``depths`` defaults to the
+        power-of-two tiers up to ``tick_chunks``; ``occupancies`` forwards
+        to :meth:`StreamPool.warmup`."""
         if depths is None:
             depths = []
             d = 1
@@ -741,7 +910,7 @@ class StreamServer:
                 d <<= 1
             depths.append(self._tick_chunks)
         fut = Future()
-        self._submit(("warmup", tuple(depths), tuple(occupancies), fut))
+        self._submit(("warmup", tuple(depths), tuple(occupancies), fut), "warmup")
         fut.result()
 
     def open_session(self) -> int:
@@ -751,7 +920,7 @@ class StreamServer:
         the pool size.
         """
         fut = Future()
-        self._submit(("open", fut))
+        self._submit(("open", fut), "open_session")
         return fut.result()
 
     def feed(self, handle: int, samples) -> None:
@@ -767,13 +936,13 @@ class StreamServer:
             samples.dtype, np.complexfloating
         ):
             raise TypeError(f"samples must be real numeric, got {samples.dtype}")
-        self._submit(("feed", handle, samples))
+        self._submit(("feed", handle, samples, None), "feed")
 
     def close_session(self, handle: int) -> None:
         """Drain + finalize a session (blocking until flushed); its result
         queue then ends."""
         fut = Future()
-        self._submit(("close", handle, fut))
+        self._submit(("close", handle, fut), "close_session")
         fut.result()
 
     def iter_results(self, handle: int):
@@ -782,6 +951,8 @@ class StreamServer:
         Safe to run concurrently with :meth:`feed`; re-raises any device
         error that failed the session.
         """
+        if self._relay is not None and not self._relay.front:
+            raise _follower_error("iter_results")
         with self._lock:
             q = self._results.get(handle)
         if q is None:
@@ -802,7 +973,8 @@ class StreamServer:
             yield item
 
     def close(self) -> None:
-        """Stop the loop; unclosed sessions' queues end with an error."""
+        """Stop the loop; unclosed sessions' queues end with an error.  On
+        a follower, waits until the front's close reaches it."""
         with self._lock:
             if self._closed:
                 return
@@ -818,7 +990,9 @@ class StreamServer:
 
     # -- loop thread -------------------------------------------------------
 
-    def _submit(self, cmd) -> None:
+    def _submit(self, cmd, name: str) -> None:
+        if self._relay is not None and not self._relay.front:
+            raise _follower_error(name)
         with self._lock:
             if self._closed:
                 raise RuntimeError("server is closed")
@@ -829,27 +1003,33 @@ class StreamServer:
             return self._results.get(handle)
 
     def _handle(self, cmd) -> None:
-        kind = cmd[0]
+        """Apply one command (its last item is its future, None on a
+        follower) to the pool."""
+        kind, fut = cmd[0], cmd[-1]
         if kind == "warmup":
-            _, depths, occupancies, fut = cmd
+            _, depths, occupancies, _ = cmd
+            pool = self._pool
             try:
-                self._pool.warmup(depths, occupancies)
+                pool.warmup(depths, occupancies)
+                if self._relay is not None:
+                    # the slot gather's first call (seconds on a card) too
+                    pool._gathered(*pool._stream._finalize_impl(pool._states))
             except Exception as e:  # noqa: BLE001 -- to the caller
-                fut.set_exception(e)
+                _settle(fut, exc=e)
                 return
-            fut.set_result(None)
+            _settle(fut)
         elif kind == "open":
-            fut = cmd[1]
             try:
                 handle = self._pool.open()
             except Exception as e:  # noqa: BLE001 -- to the caller
-                fut.set_exception(e)
+                _settle(fut, exc=e)
                 return
-            with self._lock:
-                self._results[handle] = queue.SimpleQueue()
-            fut.set_result(handle)
+            if fut is not None:
+                with self._lock:
+                    self._results[handle] = queue.SimpleQueue()
+            _settle(fut, handle)
         elif kind == "feed":
-            _, handle, samples = cmd
+            _, handle, samples, _ = cmd
             try:
                 self._pool.feed(handle, samples)
             except KeyError:
@@ -864,7 +1044,7 @@ class StreamServer:
         elif kind == "close":
             # queues may already be gone (iter_results drops a session's
             # queue on a delivered error) -- never index unconditionally
-            _, handle, fut = cmd
+            _, handle, _ = cmd
             try:
                 for h, feats in self._pool.close_many([handle]):
                     q = self._queue_of(h)
@@ -874,21 +1054,25 @@ class StreamServer:
                 q = self._queue_of(handle)
                 if q is not None:
                     q.put(e)
-                fut.set_exception(e)
+                _settle(fut, exc=e)
                 return
             q = self._queue_of(handle)
             if q is not None:
                 q.put(None)
-            fut.set_result(None)
+            _settle(fut)
 
     def _run(self) -> None:
-        with _device_scope(self._pool._device):
-            self._loop()
+        with _device_scope(self._device):
+            try:
+                self._loop()
+            finally:
+                if self._relay is not None:
+                    self._relay.send_obj(None)  # the followers' stop
 
     def _loop(self) -> None:
-        pending_sessions = self._pool._sessions  # loop-thread only
+        sessions = self._pool._sessions  # loop-thread only
         while True:
-            have_pending = any(len(s.pending) for s in pending_sessions.values())
+            have_pending = any(len(s.pending) for s in sessions.values())
             try:
                 cmd = self._cmds.get(timeout=self._wait if have_pending else None)
             except queue.Empty:
@@ -897,11 +1081,12 @@ class StreamServer:
                 with self._lock:
                     live = list(self._results.items())
                 for handle, q in live:
-                    if handle in pending_sessions:
+                    if handle in sessions:
                         q.put(RuntimeError("server is closed"))
                 return
+            cmds = []
             if cmd is not False:
-                self._handle(cmd)
+                cmds.append(cmd)
                 # drain any further queued commands before device work
                 while True:
                     try:
@@ -911,24 +1096,49 @@ class StreamServer:
                     if nxt is None:
                         self._cmds.put(None)  # re-queue the stop
                         break
-                    self._handle(nxt)
-            try:
-                outs = self._pool.step(max_chunks=self._tick_chunks)
-            except Exception as e:  # noqa: BLE001 -- fail live sessions
-                # a failed tick fails the sessions involved TERMINALLY:
-                # deliver the exception once and drop their backlogs --
-                # retrying the same backlog would re-raise every
-                # max_wait_ms forever.  The sessions stay open:
-                # close_session still finalizes from the last good state.
-                for handle, sess in list(pending_sessions.items()):
-                    if not len(sess.pending):
-                        continue
-                    sess.pending = sess.pending[:0]
-                    q = self._queue_of(handle)
-                    if q is not None:
-                        q.put(e)
-                continue
-            for handle, feats in outs:
+                    cmds.append(nxt)
+            if self._relay is not None:
+                self._relay.send_obj(([c[:-1] for c in cmds], self._tick_chunks))
+            for c in cmds:
+                self._handle(c)
+            self._tick(self._tick_chunks)
+
+    def _follow(self) -> None:
+        """A follower's loop: apply the front's commands to this rank's
+        pool in the front's order and tick, until the front stops."""
+        with _device_scope(self._device):
+            while True:
+                msg = self._relay.recv_obj()
+                if msg is None:
+                    return
+                cmds, max_chunks = msg
+                for c in cmds:
+                    self._handle((*c, None))
+                self._tick(max_chunks)
+
+    def _tick(self, max_chunks: int) -> None:
+        sessions = self._pool._sessions
+        involved = [h for h, s in sessions.items() if len(s.pending)]
+        err = None
+        try:
+            outs = self._pool.step(max_chunks=max_chunks)
+        except Exception as e:  # noqa: BLE001 -- fail live sessions
+            err = e
+        if self._relay is not None and involved and not self._relay.agree(err is None):
+            err = err or RuntimeError("the tick failed on another rank")
+        if err is not None:
+            # a failed tick fails the sessions involved TERMINALLY: deliver
+            # the exception once and drop their backlogs -- retrying the
+            # same backlog would re-raise every max_wait_ms forever.  The
+            # sessions stay open: close_session still finalizes from the
+            # last good state.
+            for handle in involved:
+                sessions[handle].pending = sessions[handle].pending[:0]
                 q = self._queue_of(handle)
                 if q is not None:
-                    q.put(feats)
+                    q.put(err)
+            return
+        for handle, feats in outs:
+            q = self._queue_of(handle)
+            if q is not None:
+                q.put(feats)

@@ -97,3 +97,49 @@ def test_frame_padded_short_buffer_pads_with_zeros():
     got = TF.frame_padded(torch.tensor(x), 4, 5, 3)
     assert np.array_equal(got.numpy(), want)
     assert TF.frame_padded(torch.tensor(x), 0, 5, 3).shape == (0, 5)
+
+
+@pytest.mark.parametrize("style,kaldi,fl,fs", STYLES, ids=STYLE_IDS)
+def test_frame_signal_gathers_reflected_frames(style, kaldi, fl, fs):
+    """The index-gather framing, on full and on short valid extents of a
+    buffer (``sig_len < len(signal)``, also below one frame and 0), as an
+    int and as a 0-d tensor: bitwise equal to JAX's."""
+    rng = np.random.RandomState(8)
+    sig = rng.randn(1300)
+    pad_left = JF.left_pad_width(style, fl, fs, kaldi)
+    for sig_len in (1300, 1111, fl // 2 + 1, 7, 0):
+        mf = max(JF.frame_count_np(sig_len, fl, fs), 2)
+        want = np.asarray(JF.frame_signal(jnp.asarray(sig), sig_len, mf, fl, fs, pad_left))
+        for n in (sig_len, torch.tensor(sig_len)):
+            got = TF.frame_signal(torch.tensor(sig), n, mf, fl, fs, pad_left)
+            assert got.dtype == torch.float64 and got.shape == want.shape
+            assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("style,kaldi,fl,fs", STYLES, ids=STYLE_IDS)
+def test_pad_signal_np_and_frame_positions_np(style, kaldi, fl, fs):
+    """The host padding, fresh and into ``out=`` (a longer buffer whose
+    tail it leaves alone), with ``sig_len`` below the buffer's length, and
+    the frame positions: bitwise equal to JAX's.  A negative left pad (Kaldi
+    centring with a shift past the frame) is refused by both."""
+    rng = np.random.RandomState(9)
+    sig = rng.randn(1500)
+    pad_left = JF.left_pad_width(style, fl, fs, kaldi)
+    if pad_left < 0:
+        for fn in (JF.pad_signal_np, TF.pad_signal_np):
+            with pytest.raises(ValueError):
+                fn(sig, 1500, fl, fs, pad_left)
+        return
+    for sig_len in (1500, 1234, fl // 2 + 1, fl // 2):
+        want, want_n = JF.pad_signal_np(sig, sig_len, fl, fs, pad_left)
+        got, got_n = TF.pad_signal_np(sig, sig_len, fl, fs, pad_left)
+        assert got_n == want_n and got.dtype == want.dtype
+        assert np.array_equal(got, want)
+        out_t, out_j = np.full(4000, 7.0), np.full(4000, 7.0)
+        got_o, n_o = TF.pad_signal_np(sig, sig_len, fl, fs, pad_left, out=out_t)
+        want_o, _ = JF.pad_signal_np(sig, sig_len, fl, fs, pad_left, out=out_j)
+        assert got_o is out_t and n_o == want_n
+        assert np.array_equal(out_t, out_j)
+        assert np.array_equal(
+            TF.frame_positions_np(want_n, fl, fs), JF.frame_positions_np(want_n, fl, fs)
+        )

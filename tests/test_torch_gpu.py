@@ -1089,3 +1089,56 @@ def test_feature_server_launches_b2_once_a_micro_batch():
         want = plain.compute_batch(u[None], [u.size])[0][0].cpu().numpy()
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, rtol=0, atol=TOL_INT8)
+
+
+@pytest.mark.cuda
+def test_servers_on_a_world_1_nccl_group_relay_through_b2(tmp_path):
+    """Both servers on a one-card NCCL mesh take the relay path (header,
+    scatter to the front itself, run, gather): FeatureServer at 'double'
+    launches B2 once a micro-batch, each result within the digit
+    tolerance of the utterance alone on the plain digit route; a
+    StreamServer's sessions match compute_full within the float tier."""
+    import torch.distributed as dist
+
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.parallel import multihost
+    from speech_tpu_torch.serve import FeatureServer, StreamServer
+
+    dev = _device()
+
+    def comp(**kw):
+        return STFTFrameComputer(dict(BANK), frame_length_ms=25, frame_shift_ms=10,
+                                 include_energy=True, device=dev, **kw)
+
+    rng = np.random.RandomState(32)
+    utts = [(rng.randn(rng.randint(16000, 80000)) * 0.1).astype(np.float32) for _ in range(20)]
+    plain = comp(precision="double", fft_mode="matmul")
+    multihost.initialize(store=dist.FileStore(str(tmp_path / "store"), 1),
+                         num_processes=1, process_id=0, backend="nccl")
+    try:
+        mesh = par.make_mesh(("data",))
+        with FeatureServer(comp(precision="double"), mesh=mesh, max_batch=8,
+                           max_wait_ms=5.0) as server:
+            assert server._relay is not None and server._relay.front
+            server.warmup([80000])
+            K.reset_launch_counts()
+            outs = server.extract_many(utts)
+            launches = K.launch_counts()["stft_feats_int8"]
+            stats = dict(server.stats)
+        assert stats["failed"] == 0 and launches == stats["batches"] >= 3
+        for u, got in zip(utts, outs):
+            want = plain.compute_batch(u[None], [u.size])[0][0].cpu().numpy()
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got, want, rtol=0, atol=TOL_INT8)
+        stream_comp = comp()
+        with StreamServer(stream_comp, slots=4, chunk_size=1600, mesh=mesh) as streams:
+            hs = [streams.open_session() for _ in range(2)]
+            for h, u in zip(hs, utts):
+                for i in range(0, u.size, 5000):
+                    streams.feed(h, u[i: i + 5000])
+                streams.close_session(h)
+            for h, u in zip(hs, utts):
+                got = np.concatenate(list(streams.iter_results(h)))
+                np.testing.assert_allclose(got, stream_comp.compute_full(u), rtol=0, atol=TOL_FLOAT)
+    finally:
+        dist.destroy_process_group()

@@ -10,9 +10,15 @@ held against ``compute_full`` of the port's float64 computer within 1e-8,
 as the JAX package's tests hold its own; the port's ``compute_full`` is in
 turn held against the JAX package's on the same signals.  The pool with
 its slots over a mesh runs at world size 1 in this process and at world
-size 2 as one launch of ``tests/torch_dist_worker.py`` (gloo).
+size 2 as one launch of ``tests/torch_dist_worker.py`` (gloo).  Both
+servers on a mesh (rank 0 the front, the other ranks following through
+the relay) run at world size 1 in this process and at world sizes 2 and
+4 as one launch each of the worker's ``serve_group``; the served rows are
+also held against the JAX package's ``FeatureServer`` on its CPU mesh cut
+to as many devices.
 """
 
+import functools
 import os
 import threading
 import time
@@ -484,14 +490,25 @@ def test_pool_and_server_on_a_world_size_1_mesh(tmp_path):
         for h, f in pool.close_many(handles):
             got[h].append(f)
         with FeatureServer(computer, mesh=mesh, max_batch=4, max_wait_ms=10.0) as server:
+            assert server._relay.front and server._relay.world == 1  # the relay path
+            server.warmup([len(s) for s in sigs])
             outs = server.extract_many(sigs)
-        return [np.concatenate(got[h]) for h in handles], outs
+        with StreamServer(computer, slots=2, chunk_size=800, mesh=mesh) as streams:
+            assert streams._relay.front
+            hs = [streams.open_session() for _ in sigs]
+            for h, s in zip(hs, sigs):
+                streams.feed(h, s[: len(s) // 3])
+                streams.feed(h, s[len(s) // 3:])
+                streams.close_session(h)
+            streamed = [np.concatenate(list(streams.iter_results(h))) for h in hs]
+        return [np.concatenate(got[h]) for h in handles], outs, streamed
 
-    pooled, served = _in_process(str(tmp_path), run)
-    for sig, a, b in zip(sigs, pooled, served):
+    pooled, served, streamed = _in_process(str(tmp_path), run)
+    for sig, a, b, c in zip(sigs, pooled, served, streamed):
         want = computer.compute_full(sig)
         _close(a, want)
         _close(b, want)
+        _close(c, want)
 
 
 @pytest.fixture(scope="module")
@@ -606,3 +623,101 @@ def test_stream_server_warmup():
         server.feed(h, sig)
         server.close_session(h)
         _close(np.concatenate(list(server.iter_results(h))), computer.compute_full(sig))
+
+
+# --- both servers on a group of processes ---------------------------------------
+
+
+GROUP_WORLDS = (2, 4)
+
+
+@pytest.fixture(scope="module")
+def group(tmp_path_factory):
+    """``serve_group`` of the worker at world sizes 2 and 4 (gloo), each
+    one launch, started together."""
+    tmp = str(tmp_path_factory.mktemp("serve_group"))
+    launches = {w: W.launch(w, tmp, cases="serve_group") for w in GROUP_WORLDS}
+    return {w: W.wait(*launches[w]) for w in GROUP_WORLDS}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_served(world):
+    """The JAX package's ``FeatureServer`` on its CPU mesh cut to ``world``
+    devices, on the worker's requests (computed once a world size)."""
+    import jax
+
+    from speech_tpu import parallel as jpar
+    from speech_tpu import serve as jserve
+
+    mesh = jpar.make_mesh(("data",), devices=jax.devices()[:world])
+    computer = W.stft_computer(speech_tpu)
+    with jserve.FeatureServer(computer, mesh=mesh, max_batch=4,
+                                        max_wait_ms=20.0) as server:
+        return server.extract_many(W.serve_signals())
+
+
+def _split(r, prefix):
+    return np.split(r[prefix], np.cumsum(r[prefix + "_n"])[:-1])
+
+
+@pytest.mark.parametrize("world", GROUP_WORLDS)
+def test_feature_server_on_a_group_matches_compute_full_and_jax(group, world):
+    """Requests from 3 threads on rank 0, each micro-batch's rows run on
+    every rank's card (here the CPU): every result within 1e-8 of
+    ``compute_full`` and of the JAX package's server on a mesh of as many
+    devices.  The warm-up ran on every rank: each ran as many row blocks,
+    more than the served micro-batches."""
+    r = group[world]
+    computer = W.stft_computer(speech_tpu_torch)
+    got = _split(r, "served")
+    for sig, g, j in zip(W.serve_signals(), got, _jax_served(world)):
+        _close(g, computer.compute_full(sig))
+        _close(g, np.asarray(j))
+    completed, failed, batches = r["served_stats"]
+    assert completed == 9 and failed == 0
+    assert len(set(r["runs"])) == 1 and r["runs"][0] > batches, (r["runs"], batches)
+
+
+@pytest.mark.parametrize("world", GROUP_WORLDS)
+def test_feature_server_followers_refuse_requests_and_close_with_rank_0(group, world):
+    """A follower's ``submit``, ``extract`` and ``warmup`` (and the stream
+    server's client methods) raise ``RuntimeError`` naming rank 0, and
+    each follower's ``close`` returns once rank 0 closes, its thread
+    ended."""
+    r = group[world]
+    assert r["follower_checks"].size == 10 * (world - 1)
+    assert (r["follower_checks"] == 1).all(), r["follower_checks"]
+    assert (r["front_checks"] == 1).all()
+
+
+@pytest.mark.parametrize("world", GROUP_WORLDS)
+def test_feature_server_on_a_group_isolates_a_failing_request(group, world):
+    """A postprocessor refuses one request's row on the follower that holds
+    it (row 2 of a 4-row micro-batch): every rank agrees the micro-batch
+    failed, the front replays it request by request, and only the bad
+    request fails (on rank 0, where its replay runs); the requests after
+    it are served on every rank."""
+    r = group[world]
+    computer = W.stft_computer(speech_tpu_torch)
+    assert int(r["bad_error"]) == 1
+    sigs = W.serve_signals()
+    want = [sigs[0], sigs[1], sigs[3]] + sigs[4:]
+    got = _split(r, "isolated")
+    assert len(got) == len(want)
+    for sig, g in zip(want, got):
+        _close(g, computer.compute_full(sig))
+    assert list(r["isolated_stats"]) == [8, 1]
+    holder = 2 // (4 // world)
+    assert r["refusals"][0] == 1 and r["refusals"][holder] == 1
+    assert r["refusals"].sum() == 2
+
+
+@pytest.mark.parametrize("world", GROUP_WORLDS)
+def test_stream_server_on_a_group_matches_compute_full(group, world):
+    """Four sessions fed in ragged pieces from threads on rank 0, each
+    rank ticking its block of the 4 slots: each session's rows within 1e-8
+    of ``compute_full`` (the server no longer hangs on a mesh of several
+    processes)."""
+    computer = W.stft_computer(speech_tpu_torch)
+    for i, sig in enumerate(W.model_inputs()["sessions"]):
+        _close(group[world][f"stream{i}"], computer.compute_full(sig))

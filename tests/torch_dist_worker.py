@@ -18,7 +18,11 @@ data x filter sharded training step of the STFT frontend,
 :func:`train_step`; world sizes 2 and 4), ``models_train`` (the
 data-parallel step of a KWS model, :func:`models_train_step`),
 ``serve_pool`` (a ``StreamPool`` with its slots over the data axis,
-:func:`serve_pool`), ``cli`` (``signals-to-torch-feat-dir`` on a mesh,
+:func:`serve_pool`), ``serve_group`` (``FeatureServer`` and
+``StreamServer`` served from rank 0 over the mesh, :func:`serve_group`),
+``serve_bench`` (the main config's 'double' burst through a server on the
+mesh, :func:`serve_bench`), ``relay_feeds`` (a stream server's commands
+over the relay as objects and as tensors, :func:`relay_feeds`), ``cli`` (``signals-to-torch-feat-dir`` on a mesh,
 :func:`cli_extract`) or ``bench`` (:func:`extract_bench`, GPUs only), and ``<device>`` is ``cpu`` (gloo; the default) or ``cuda``
 (NCCL, one card a rank: ``tools/torch_multichip.py`` runs the same cases
 on four cards).
@@ -267,6 +271,275 @@ def serve_pool(world: int, device: str = "cpu") -> dict:
     out["refused"] = np.array(_raises(
         lambda: stt.serve.StreamPool(stft_computer(stt, device), slots=world + 1, mesh=mesh),
         ValueError, "multiple") if world > 1 else 1)
+    return out
+
+
+SERVE_BAD_FRAMES = 29  # the frame count of the request a postprocessor refuses
+SERVE_BAD_LEN = 2345  # (2345 + 40) // 80 = 29 frames at the 8 kHz, 10 ms shift
+
+
+def serve_signals() -> list:
+    """The served requests (numpy, seeded): 9 ragged signals, none of
+    :data:`SERVE_BAD_FRAMES` frames."""
+    rng = np.random.RandomState(20261119)
+    out = []
+    while len(out) < 9:
+        n = int(rng.randint(1100, 4800))
+        if (n + 40) // 80 != SERVE_BAD_FRAMES:
+            out.append(rng.randn(n))
+    return out
+
+
+def _threaded(submit, signals, threads: int = 3):
+    """``signals`` submitted from ``threads`` threads (request ``i`` from
+    thread ``i % threads``): their results and exceptions, by request."""
+    import threading
+
+    res, errs = [None] * len(signals), [None] * len(signals)
+
+    def client(k):
+        futs = [(i, submit(signals[i])) for i in range(k, len(signals), threads)]
+        for i, f in futs:
+            try:
+                res[i] = f.result(timeout=120)
+            except Exception as e:  # noqa: BLE001 -- recorded
+                errs[i] = e
+
+    workers = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join()
+    return res, errs
+
+
+REFUSALS = [0]  # this rank's refused blocks
+
+
+def _refuse_bad_rows(feats, counts):
+    """A postprocessor that raises on a row of :data:`SERVE_BAD_FRAMES`
+    frames, on whichever rank holds it (counted in :data:`REFUSALS`)."""
+    if bool((counts == SERVE_BAD_FRAMES).any()):
+        REFUSALS[0] += 1
+        raise ValueError("refused a bad row")
+    return feats, counts
+
+
+def serve_group(world: int, device: str = "cpu") -> dict:
+    """``FeatureServer`` and ``StreamServer`` over the mesh, rank 0 the
+    front.  Rank 0 warms the feature server up, submits
+    :func:`serve_signals` from 3 threads, then (on a server whose
+    postprocessor refuses one row) a micro-batch holding the bad request
+    and, after it, the rest; then feeds the 4 sessions of
+    :func:`model_inputs` in ragged pieces from 4 threads.  The followers
+    try the client methods.  Returns the served rows, the failure and
+    stats, every rank's count of row blocks run by the first server and of
+    blocks refused by the second, and every follower's checks (each 1 when
+    it held): its client methods refused naming rank 0, and each server's
+    thread ended once rank 0's close reached it."""
+    import threading
+
+    import torch.distributed as dist
+
+    import speech_tpu_torch as stt
+    from speech_tpu_torch import parallel as par
+
+    mesh = par.make_mesh(("data",), devices=device)
+    comp = stft_computer(stt, device)
+    rank = dist.get_rank()
+    sigs = serve_signals()
+    out, checks = {}, []
+
+    def refused(fn):
+        return _raises(fn, RuntimeError, "rank 0")
+
+    runs = [0]
+    compute_batch = comp.compute_batch
+
+    def counted(*args, **kw):
+        runs[0] += 1
+        return compute_batch(*args, **kw)
+
+    comp.compute_batch = counted
+    server = stt.serve.FeatureServer(comp, mesh=mesh, max_batch=4, max_wait_ms=20.0)
+    if rank == 0:
+        server.warmup([len(s) for s in sigs])
+        server.warmup([len(sigs[0])], batch=6)  # more rows than one header holds
+        res, errs = _threaded(server.submit, sigs)
+        assert not any(errs), errs
+        out.update(_ragged("served", res))
+        out["served_stats"] = np.array([server.stats[k] for k in ("completed", "failed", "batches")])
+    else:
+        checks += [refused(lambda: server.submit(sigs[0])), refused(lambda: server.extract(sigs[0])),
+                   refused(lambda: server.warmup([1000]))]
+    server.close()
+    checks.append(int(not server._worker.is_alive()))
+    comp.compute_batch = compute_batch
+
+    server = stt.serve.FeatureServer(comp, mesh=mesh, max_batch=4, max_wait_ms=200.0,
+                                     postprocessors=[_refuse_bad_rows])
+    if rank == 0:
+        bad = np.random.RandomState(3).randn(SERVE_BAD_LEN)
+        first = [sigs[0], sigs[1], bad, sigs[3]]  # one micro-batch: row 2 on rank 2 // (4 // world)
+        futs = [server.submit(s) for s in first]
+        out["bad_error"] = np.array(_raises(lambda: futs[2].result(timeout=120), ValueError,
+                                            "refused a bad row"))
+        kept = [f.result(timeout=120) for i, f in enumerate(futs) if i != 2]
+        kept += server.extract_many(sigs[4:])
+        out.update(_ragged("isolated", kept))
+        out["isolated_stats"] = np.array([server.stats[k] for k in ("completed", "failed")])
+    server.close()
+    checks.append(int(not server._worker.is_alive()))
+
+    sessions = model_inputs()["sessions"]
+    streams = stt.serve.StreamServer(comp, slots=4, chunk_size=800, mesh=mesh, max_wait_ms=2.0)
+    if rank == 0:
+        streams.warmup()
+        handles = [streams.open_session() for _ in sessions]
+
+        def feeder(h, sig):
+            r = np.random.RandomState(100 + h)
+            i = 0
+            while i < len(sig):
+                n = int(r.randint(200, 1500))
+                streams.feed(h, sig[i: i + n])
+                i += n
+            streams.close_session(h)
+
+        feeders = [threading.Thread(target=feeder, args=(h, s)) for h, s in zip(handles, sessions)]
+        for t in feeders:
+            t.start()
+        got = {h: list(streams.iter_results(h)) for h in handles}
+        for t in feeders:
+            t.join()
+        for i, h in enumerate(handles):
+            out[f"stream{i}"] = np.concatenate(got[h])
+    else:
+        checks += [refused(lambda: streams.open_session()), refused(lambda: streams.feed(0, sigs[0])),
+                   refused(lambda: streams.close_session(0)),
+                   refused(lambda: next(iter(streams.iter_results(0))))]
+    streams.close()
+    checks.append(int(not streams._worker.is_alive()))
+
+    every = [None] * world
+    dist.all_gather_object(every, (runs[0], REFUSALS[0]))
+    out["runs"], out["refusals"] = np.array(every, dtype=np.int64).T
+    dist.all_gather_object(every, checks)
+    out["follower_checks"] = np.array([c for r in every[1:] for c in r], dtype=np.int64)
+    out["front_checks"] = np.array(every[0], dtype=np.int64)
+    return out
+
+
+MAIN_BANK = {"name": "fbank", "num_filts": 40, "sampling_rate": 16000}
+MAIN_KW = dict(frame_length_ms=25, frame_shift_ms=10, include_energy=True, precision="double")
+
+
+def burst_utts(count: int = 256, seconds: int = 15, rate: int = 16000) -> list:
+    """``chip_smoke.py``'s serving burst: ``count`` ragged float32
+    utterances of 1 to ``seconds`` s from a seed."""
+    rng = np.random.RandomState(18)
+    return [(rng.randn(rng.randint(rate, seconds * rate + 1)) * 0.1).astype(np.float32)
+            for _ in range(count)]
+
+
+def serve_bench(world: int, device: str = "cuda", count: int = 256, seconds: int = 15) -> dict:
+    """``FeatureServer`` at the main config of ``bench.py:117-124``
+    ('double': B2 on a card) over the mesh, rank 0 the front: a warm-up
+    and one untimed burst of :func:`burst_utts` from 4 threads
+    (``max_batch`` 64), then five timed bursts, each burst's host ms;
+    every rank's B2 launches over the server's life (counters from 0 at
+    its construction) and the front's micro-batches; the last burst's
+    rows."""
+    import time
+
+    import torch.distributed as dist
+
+    import speech_tpu_torch as stt
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.ops import stft_kernels as K
+
+    mesh = par.make_mesh(("data",), devices=device)
+    comp = stt.compute.STFTFrameComputer(dict(MAIN_BANK), device=device, **MAIN_KW)
+    utts = burst_utts(count, seconds)
+    out = {}
+    K.reset_launch_counts()
+    server = stt.serve.FeatureServer(comp, mesh=mesh, max_batch=64, max_wait_ms=2.0)
+    if dist.get_rank() == 0:
+        server.warmup([seconds * 16000])
+        walls = []
+        _threaded(server.submit, utts, threads=4)  # the first pays pinned host allocations
+        for _ in range(5):
+            t0 = time.perf_counter()
+            res, errs = _threaded(server.submit, utts, threads=4)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            assert not any(errs), errs
+        out.update(_ragged("bench_rows", res))
+        out["bench_ms"] = np.array(walls)
+        out["bench_audio_s"] = np.array(sum(u.size for u in utts) / 16000)
+        out["bench_batches"] = np.array(server.stats["batches"])
+    server.close()
+    every = [None] * world
+    dist.all_gather_object(every, K.launch_counts()["stft_feats_int8"])
+    out["bench_launches"] = np.array(every)
+    return out
+
+
+def relay_feeds(world: int, device: str = "cpu", sessions: int = 16, chunk: int = 1600,
+                reps: int = 200) -> dict:
+    """How a stream server's commands travel best to the followers, on the
+    relay's gloo group: a tick's list of ``sessions`` feeds of ``chunk``
+    float32 samples, ``reps`` times as one ``broadcast_object_list`` (what
+    ``StreamServer`` sends) and as tensors (an int64 header of every
+    command's handle and length, then one float32 buffer of the samples),
+    each decoded into numpy feeds on every rank.  Returns the median ms of
+    a message, the slowest rank's, for each."""
+    import statistics
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.parallel._relay import Relay
+
+    relay = Relay(par.make_mesh(("data",), devices=device))
+    ctrl = relay._ctrl
+    rng = np.random.RandomState(7)
+    cmds = [("feed", h, rng.randn(chunk).astype(np.float32)) for h in range(sessions)]
+
+    def as_objects():
+        if relay.front:
+            relay.send_obj((cmds, 16))
+            return cmds
+        return relay.recv_obj()[0]
+
+    def as_tensors():
+        head = torch.zeros(2 + 2 * sessions, dtype=torch.int64)
+        if relay.front:
+            head[:2] = torch.tensor([len(cmds), 16])
+            head[2::2] = torch.tensor([h for _, h, _ in cmds])
+            head[3::2] = torch.tensor([x.size for _, _, x in cmds])
+        dist.broadcast(head, src=0, group=ctrl)
+        n, lens = int(head[0]), head[3::2].numpy()
+        buf = (torch.from_numpy(np.concatenate([x for _, _, x in cmds])) if relay.front
+               else torch.empty(int(lens[:n].sum()), dtype=torch.float32))
+        dist.broadcast(buf, src=0, group=ctrl)
+        parts = np.split(buf.numpy(), np.cumsum(lens[:n])[:-1])
+        return [("feed", int(h), x) for h, x in zip(head[2::2][:n].tolist(), parts)]
+
+    out = {}
+    for name, fn in (("objects", as_objects), ("tensors", as_tensors)):
+        got = fn()  # warm
+        assert all(np.array_equal(a[2], b[2]) for a, b in zip(got, cmds))
+        times = []
+        for _ in range(reps):
+            dist.barrier(group=ctrl)
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = torch.tensor([statistics.median(times)], dtype=torch.float64)
+        dist.all_reduce(ms, op=dist.ReduceOp.MAX, group=ctrl)
+        out[f"feeds_{name}_ms"] = ms.numpy()
     return out
 
 
@@ -542,6 +815,9 @@ CASES = {
     "train": lambda world, device: train_step(inputs()["train"], device),
     "models_train": models_train_step,
     "serve_pool": serve_pool,
+    "serve_group": serve_group,
+    "serve_bench": serve_bench,
+    "relay_feeds": relay_feeds,
     "cli": cli_extract,
     "bench": extract_bench,
 }
