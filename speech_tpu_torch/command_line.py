@@ -923,11 +923,14 @@ def _signals_to_torch_feat_dir(options) -> int:
             items,
         )
         while True:
+            # the stage closes before the yield: the consumer's time
+            # between two items is not reading
             with timer.stage("read"):
                 try:
-                    yield next(it)
+                    item = next(it)
                 except StopIteration:
                     return
+            yield item
 
     def save_timed(utt_id, feats):
         with timer.stage("write"):
@@ -1122,6 +1125,11 @@ def _signals_to_torch_feat_dir(options) -> int:
             pool.shutdown()
     if options.profile is not None:
         print(timer.summary(), file=sys.stderr)
+        if extractor is not None and extractor.stats["kernel_samples"]:
+            st = extractor.stats
+            print(f"useful share: {100.0 * st['samples'] / st['kernel_samples']:.2f}% "
+                  f"({st['samples']} real of {st['kernel_samples']} samples handed to "
+                  f"the computer in {st['batches']} batches)", file=sys.stderr)
     return 0
 
 

@@ -14,6 +14,7 @@ on every process.
 """
 
 import contextlib
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,6 +26,14 @@ from ..compute import _compact_transfer, _to_device
 from .mesh import axis_size, global_tensor, local_rows, local_tensor
 
 __all__ = ["ShardedExtractor", "sharded_pitch_feats"]
+
+
+_NULL = contextlib.nullcontext()
+
+
+def _no_stage(name):
+    """The ``stage`` of no timer: records nothing."""
+    return _NULL
 
 
 def _next_pow2(n: int) -> int:
@@ -102,6 +111,16 @@ class ShardedExtractor:
         computer takes its kernels from it (``computer.enable_aot``), so a
         store a previous process (or ``--precompile``) warmed serves with
         no compiler.  The store is ``self.aot``.
+
+    Attributes
+    ----------
+    stats
+        Monotonic counters of this process's part of the batches that
+        :meth:`extract` and :meth:`extract_iter` queued: ``batches``,
+        ``rows`` (padded rows), ``samples`` (the real samples of those
+        rows) and ``kernel_samples`` (rows times the bucket length: what
+        the computer was handed).  ``samples / kernel_samples`` is the
+        share of the computer's input that is not padding.
     """
 
     def __init__(
@@ -131,6 +150,9 @@ class ShardedExtractor:
             device_post_chain(postprocessors) if postprocessors else None
         )
         self.aot = as_cache(aot_dir)  # path, AOTCache, or None
+        self.stats = {"batches": 0, "rows": 0, "samples": 0, "kernel_samples": 0}
+        self._stats_lock = threading.Lock()
+        self._local = threading.local()  # the stage of this thread's timed call
         if self.aot is not None:
             computer.enable_aot(self.aot)
 
@@ -222,38 +244,67 @@ class ShardedExtractor:
         keeps the full batches' shape.  ``timer`` (anything with a
         ``stage(name)`` context manager) attributes host padding and the
         queued launches to ``"dispatch"`` and the device wait and readback
-        to ``"collect"``.
+        to ``"collect"``, and the parts of each to the stages nested in
+        them (:meth:`_dispatch`, :meth:`_collect`).
         """
-        stage = (
-            timer.stage if timer is not None
-            else (lambda name: contextlib.nullcontext())
-        )
+        stage = _no_stage if timer is None else timer.stage
         pending = None  # (feats, counts, n)
         for signals in batches:
-            with stage("dispatch"):
+            with stage("dispatch"), self._timed(timer):
                 nxt = self._dispatch(signals, min_batch)
             if pending is not None:
-                with stage("collect"):
+                with stage("collect"), self._timed(timer):
                     out = self._collect(*pending)
                 yield out
             pending = nxt
         if pending is not None:
-            with stage("collect"):
+            with stage("collect"), self._timed(timer):
                 out = self._collect(*pending)
             yield out
+
+    @contextlib.contextmanager
+    def _timed(self, timer):
+        """A block in which this thread's :meth:`_dispatch` and
+        :meth:`_collect` report their parts to ``timer`` (nothing when it
+        is None).  The timer rides on the thread, not in their arguments,
+        because wrappers replace ``_dispatch(signals, min_batch)`` and
+        ``_collect(feats, counts, n)`` with those signatures (the tests'
+        and the benchmark's planted faults)."""
+        prev = getattr(self._local, "stage", None)
+        self._local.stage = None if timer is None else timer.stage
+        try:
+            yield
+        finally:
+            self._local.stage = prev
+
+    def _stage(self, name: str):
+        """This thread's timer's ``stage(name)`` inside :meth:`_timed`."""
+        return (getattr(self._local, "stage", None) or _no_stage)(name)
 
     def _dispatch(self, signals: Sequence[np.ndarray], min_batch: int = 0):
         """Queue a batch on the device without waiting for it: this
         process's rows are padded into a pinned host buffer (on a GPU) and
         copied with ``non_blocking=True``, so nothing here synchronises
-        with the card.  ``min_batch`` pads the batch dimension up."""
+        with the card.  ``min_batch`` pads the batch dimension up.  Inside
+        :meth:`_timed` the padding is stage ``"pad"`` and the queued
+        copies and launches ``"launch"``."""
         n = len(signals)
         if n == 0:
             return None, None, 0
+        stage = self._stage
         lengths, max_len, buf_dtype = self._host_batch(signals, min_batch)
         start, per = self._row_block(lengths.size)
-        rows = self._pad_rows(signals, lengths, max_len, buf_dtype, start, per)
-        feats, counts = self._run_block(rows, lengths, max_len, start)
+        with stage("pad"):
+            rows = self._pad_rows(signals, lengths, max_len, buf_dtype, start, per)
+        with stage("launch"):
+            feats, counts = self._run_block(rows, lengths, max_len, start)
+        samples = int(lengths[start: max(start, min(start + per, n))].sum())
+        with self._stats_lock:
+            st = self.stats
+            st["batches"] += 1
+            st["rows"] += per
+            st["samples"] += samples
+            st["kernel_samples"] += per * max_len
         return (*self._wrap(feats, counts), n)
 
     def _host_batch(self, signals: Sequence[np.ndarray], min_batch: int = 0):
@@ -299,26 +350,35 @@ class ShardedExtractor:
             rows.to(dev, non_blocking=True), lens.to(dev, non_blocking=True), full
         )
 
-    @staticmethod
-    def _collect(feats, counts, n):
+    def _collect(self, feats, counts, n):
         """The one readback: every process gets every row.  From a GPU the
         rows land in pinned memory (a copy to pageable memory runs at a
         fraction of the bus's rate) and each utterance's valid rows are
-        copied out, so the pinned block goes back to its pool."""
+        copied out, so the pinned block goes back to its pool.  Inside
+        :meth:`_timed` the gather of a mesh's rows is stage ``"gather"``,
+        the wait for the card with the readback ``"wait"`` and the copies
+        of the valid rows ``"unpack"``."""
         if n == 0:
             return []
+        stage = self._stage
         if isinstance(feats, DTensor):
-            feats, counts = feats.full_tensor(), counts.full_tensor()
+            with stage("gather"):
+                feats, counts = feats.full_tensor(), counts.full_tensor()
         if feats.device.type == "cuda":
-            pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (feats, counts)]
-            for dst, src in zip(pinned, (feats, counts)):
-                dst.copy_(src, non_blocking=True)
-            torch.cuda.current_stream(feats.device).synchronize()
-            feats, counts = (t.numpy() for t in pinned)
-            return [feats[i, : counts[i]].copy() for i in range(n)]
-        counts = counts.numpy()
-        feats = feats.numpy()
-        return [feats[i, : counts[i]] for i in range(n)]
+            with stage("wait"):
+                pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                          for t in (feats, counts)]
+                for dst, src in zip(pinned, (feats, counts)):
+                    dst.copy_(src, non_blocking=True)
+                torch.cuda.current_stream(feats.device).synchronize()
+                feats, counts = (t.numpy() for t in pinned)
+            with stage("unpack"):
+                return [feats[i, : counts[i]].copy() for i in range(n)]
+        with stage("wait"):
+            counts = counts.numpy()
+            feats = feats.numpy()
+        with stage("unpack"):
+            return [feats[i, : counts[i]] for i in range(n)]
 
     def extract(self, signals: Sequence[np.ndarray], min_batch: int = 0):
         """Features for a list of host 1-D signals of any lengths.

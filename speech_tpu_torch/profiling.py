@@ -3,7 +3,9 @@
 The counterpart of :mod:`speech_tpu.profiling`:
 
 - :class:`StageTimer` -- wall-clock timers for host-visible pipeline stages
-  (read, dispatch, collect, write), reportable as one summary line (a copy).
+  (read, dispatch, collect, write) and the stages nested in them (pad,
+  launch, wait, unpack), reportable as one summary line; under an active
+  profiler it marks each stage in the profiler's trace.
 - :func:`trace` -- context manager around :class:`torch.profiler.profile`
   that writes a Chrome trace (TensorBoard-loadable) of the enclosed region.
 
@@ -12,6 +14,7 @@ The CLI exposes these via ``--profile [DIR]``.
 
 import contextlib
 import logging
+import threading
 import time
 
 from collections import defaultdict
@@ -24,25 +27,70 @@ __all__ = ["StageTimer", "trace"]
 logger = logging.getLogger("speech_tpu_torch.profiling")
 
 
+class _Open:
+    """A running stage on its thread's stack."""
+
+    __slots__ = ("start", "child_s")
+
+    def __init__(self, start):
+        self.start, self.child_s = start, 0.0
+
+
 class StageTimer:
     """Accumulate wall-clock time per named pipeline stage.
 
-    Use as ``with timer.stage("read"): ...``; ``summary()`` returns a
-    one-line report, ``report()`` logs it.
+    Use as ``with timer.stage("read"): ...``.  Stages may nest; each thread
+    keeps its own stack, so stages that run on other threads never count
+    as a stage's children.  ``totals`` are each stage's seconds;
+    ``summary()`` returns a one-line report whose total counts outermost
+    stages only and which gives each parent's self time (its seconds
+    outside the stages nested in it); ``report()`` logs it.
+
+    While a ``torch.profiler`` session is active (:func:`trace`), each
+    stage also opens a ``record_function`` range of its name, so the
+    profiler's trace shows the host stages on its own clock above the
+    card's kernels and copies.
     """
 
     def __init__(self):
         self._totals = defaultdict(float)
+        self._self = defaultdict(float)
         self._counts = defaultdict(int)
+        self._outer = 0.0
+        self._lock = threading.Lock()
+        self._local = threading.local()
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        start = time.perf_counter()
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        ranged = None
+        if torch.autograd._profiler_enabled():
+            ranged = torch.profiler.record_function(name)
+            ranged.__enter__()
+        frame = _Open(time.perf_counter())
+        stack.append(frame)
         try:
             yield self
         finally:
-            self._totals[name] += time.perf_counter() - start
-            self._counts[name] += 1
+            end = time.perf_counter()
+            # the stage it opened in (a generator suspended in its stage
+            # may close after stages opened later: not the stack's top)
+            k = len(stack) - 1 if stack[-1] is frame else stack.index(frame)
+            outer = stack[k - 1] if k else None
+            del stack[k]
+            if ranged is not None:
+                ranged.__exit__(None, None, None)
+            secs = end - frame.start
+            with self._lock:
+                self._totals[name] += secs
+                self._self[name] += secs - frame.child_s
+                self._counts[name] += 1
+                if outer is not None:
+                    outer.child_s += secs
+                else:
+                    self._outer += secs
 
     @property
     def totals(self) -> dict:
@@ -50,14 +98,13 @@ class StageTimer:
         return dict(self._totals)
 
     def summary(self) -> str:
-        total = sum(self._totals.values())
-        parts = [
-            f"{name}: {secs:.3f}s/{self._counts[name]}x"
-            for name, secs in sorted(
-                self._totals.items(), key=lambda kv: -kv[1]
-            )
-        ]
-        return f"stages ({total:.3f}s total): " + ", ".join(parts)
+        parts = []
+        for name, secs in sorted(self._totals.items(), key=lambda kv: -kv[1]):
+            part = f"{name}: {secs:.3f}s/{self._counts[name]}x"
+            if self._self[name] < secs:
+                part += f" (self {self._self[name]:.3f}s)"
+            parts.append(part)
+        return f"stages ({self._outer:.3f}s total): " + ", ".join(parts)
 
     def report(self, level: int = logging.INFO) -> None:
         if self._totals:

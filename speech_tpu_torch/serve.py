@@ -142,8 +142,10 @@ class FeatureServer:
     ----------
     stats
         Monotonic counters: ``submitted``, ``completed``, ``failed``,
-        ``rejected`` (admission control), ``batches`` (device dispatches).
-        On a mesh of several processes, the front's.
+        ``rejected`` (admission control), ``batches`` (device dispatches),
+        ``queue_wait_s`` (summed seconds from each request's ``submit`` to
+        the start of the first micro-batch launch that carries it).  On a
+        mesh of several processes, the front's.
     """
 
     def __init__(
@@ -180,7 +182,8 @@ class FeatureServer:
         # makes submit's check + put atomic with close's sentinel, so no
         # request can slip behind the stop
         self._lock = threading.Lock()
-        self.stats = {"submitted": 0, "completed": 0, "failed": 0, "rejected": 0, "batches": 0}
+        self.stats = {"submitted": 0, "completed": 0, "failed": 0, "rejected": 0, "batches": 0,
+                      "queue_wait_s": 0.0}
         follower = self._relay is not None and not self._relay.front
         self._worker = threading.Thread(
             target=self._follow if follower else self._run, name="speech-tpu-serve", daemon=True
@@ -218,7 +221,7 @@ class FeatureServer:
                 )
             self._pending += 1
             self.stats["submitted"] += 1
-            self._queue.put((signal, fut))
+            self._queue.put((signal, fut, time.perf_counter()))
         return fut
 
     def extract(self, signal: np.ndarray) -> np.ndarray:
@@ -446,8 +449,12 @@ class FeatureServer:
     def _dispatch(self, batch):
         """Queue one micro-batch; None on failure (the caller then retries
         its requests one by one)."""
+        t = time.perf_counter()
+        waited = sum(t - t_submit for _, _, t_submit in batch)
+        with self._lock:
+            self.stats["queue_wait_s"] += waited
         try:
-            disp = self._launch([s for s, _ in batch], self._min_batch(len(batch)))
+            disp = self._launch([s for s, _, _ in batch], self._min_batch(len(batch)))
         except Exception:  # noqa: BLE001 -- isolate the bad request(s)
             return None
         with self._lock:
@@ -461,7 +468,7 @@ class FeatureServer:
         except Exception:  # noqa: BLE001 -- isolate the bad request(s)
             self._retry_individually(batch)
             return
-        for (_, fut), out in zip(batch, outs):
+        for (_, fut, _), out in zip(batch, outs):
             self._done(fut, out)
 
     def _retry_individually(self, batch) -> None:
@@ -469,7 +476,7 @@ class FeatureServer:
         # rare; retry each request alone on the same extractor, so that
         # only the offending request sees the error (never computed
         # elsewhere)
-        for sig, fut in batch:
+        for sig, fut, _ in batch:
             try:
                 out = self._readback(self._launch([sig], 0))[0]
             except Exception as e:  # noqa: BLE001 -- to the caller

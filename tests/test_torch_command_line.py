@@ -248,6 +248,8 @@ def test_profile_flag(wav_dir, tmp_path, capsys):
         err = capsys.readouterr().err
         # batched path stages: host read, queued dispatch, device wait/readback
         assert "stages" in err and "dispatch" in err and "collect" in err and "read" in err
+        # the nested stages, and the extractor's count of its padding
+        assert "pad: " in err and "wait: " in err and "useful share: " in err
     traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
     assert len(traces) == 1
     with open(os.path.join(trace_dir, traces[0])) as f:

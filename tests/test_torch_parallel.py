@@ -302,7 +302,8 @@ def test_extractor_si(port, world):
 
 
 def test_extract_iter_timer_stages():
-    """``timer=`` sees every batch's dispatch and collect."""
+    """``timer=`` sees every batch's dispatch and collect, each with the
+    stages nested in it."""
     import contextlib
 
     seen = []
@@ -318,7 +319,9 @@ def test_extract_iter_timer_stages():
     batches = [[rng.randn(900)] for _ in range(3)]
     outs = list(ex.extract_iter(batches, timer=Timer()))
     assert len(outs) == 3
-    assert seen == ["dispatch", "dispatch", "collect", "dispatch", "collect", "collect"]
+    assert seen == ["dispatch", "pad", "launch", "dispatch", "pad", "launch", "collect", "wait",
+                    "unpack", "dispatch", "pad", "launch", "collect", "wait", "unpack",
+                    "collect", "wait", "unpack"]
 
 
 # --- statistics, pitch, the multi-process data path -------------------------
