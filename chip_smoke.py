@@ -13,7 +13,10 @@ Phases (each passes or the script exits non-zero):
    main path's shapes (128 x 15 s at 16 kHz; the fbank 40 config of
    ``bench.py``) and time both with CUDA events; the float kernel (B1,
    B3) at 'highest' within TOL_FLOAT, and B1 also at 'default' within
-   TOL_DEFAULT;
+   TOL_DEFAULT; the packed batch's row layout (``layout_rows``) at the
+   corpus shapes (64 rows of 2-20 s of int16 PCM, packed by
+   ``ShardedExtractor._pack_rows``) bit for bit against its plain version
+   and against the extractor's host padding (``_pad_rows``);
 4. drive ``stft_feats_double`` (the base-256 digit kernel, B4, which no
    computer route runs) at 128 x 15 s for 'double' and 'accurate', with
    its launch counter set to 0 before and read after; then B4 on banks of
@@ -132,15 +135,15 @@ Phases (each passes or the script exits non-zero):
     feature-file mode reads back bitwise;
 20. the library store (``speech_tpu_torch.aot``): a fresh process
     (``chip_smoke.py --cold-start-child``) on an empty store with nvcc and
-    g++ reachable builds the three kernel libraries and shorten (each
-    build's seconds; stats: 4 misses, 0 hits) and runs the main path's
+    g++ reachable builds the four kernel libraries and shorten (each
+    build's seconds; stats: 5 misses, 0 hits) and runs the main path's
     batch through ``ShardedExtractor(aot_dir=)`` at 'double' (B2) and
     ``fft_mode="pallas"`` (B1), reads a ``.sph`` file and answers a
     ``FeatureServer(aot_dir=)`` burst of 16 requests: its seconds from
     the spawn to its first feature are the cold start; the same process
     on that store with ``PATH`` and ``CUDA_HOME`` an empty directory (no
     compiler: any build would raise) is the warm start (0 misses, 0
-    errors, 0 fallbacks, 4 hits); both children's features are bitwise
+    errors, 0 fallbacks, 5 hits); both children's features are bitwise
     equal to this process's on the same routes and batch.  Then phase
     19's 'double' command with ``--precompile --aot-dir``, its run in a
     fresh process with no compiler (files bitwise equal to phase 19's),
@@ -231,6 +234,7 @@ INT8_WIDE = (1489, 2978)  # one filter past B2's one-group limit, and twice it
 CPU_ROWS = 8  # rows the float64 CPU references of phase 11 compute
 SOURCE = "speech_tpu_torch/csrc/stft_kernels.cu"  # B1, B3
 INT8_SOURCE = "speech_tpu_torch/csrc/int8_kernels.cu"  # B2
+LAYOUT_SOURCE = "speech_tpu_torch/csrc/layout_kernels.cu"  # the packed batch's rows
 DOUBLE_SOURCE = "speech_tpu_torch/csrc/double_kernels.cu"  # B4
 COMPUTE_PATH = ("stft_feats_rows", "stft_feats_frames", "stft_feats_int8")
 # streaming (bench.py:438-512): 100 ms chunks; 16 sessions x 64 chunks in
@@ -271,6 +275,28 @@ def cuda_ms(fn, reps=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(fn, n=20, reps=5):
+    """Median device milliseconds a call of ``fn`` by CUDA events around
+    ``n`` calls queued behind a busy card (``torch.cuda._sleep``), so that
+    the host's launch overhead stays out of a kernel shorter than it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(50_000_000)  # tens of ms: the host queues all n meanwhile
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -593,6 +619,43 @@ def main():
             entry["plain_ms"] = cuda_ms(lambda: K.stft_feats_int8_plain(padded, p, **i8_kw), reps=3)
             entries["stft_feats_int8"] = entry
         del got, want
+
+    # the packed batch's row layout at the corpus cell's shapes: 64 rows of
+    # 2-20 s of 16 kHz int16 PCM (a 524,288 bucket), packed by the
+    # extractor; the kernel's block against its plain version and against
+    # the extractor's host padding, bit for bit
+    from speech_tpu_torch import parallel as par
+
+    lay_rng = np.random.RandomState(18)
+    lay_ex = par.ShardedExtractor(computer(precision="double"))
+    check(lay_ex._packs, "the extractor does not pack on the card")
+    pcm16 = [lay_rng.randint(-32768, 32768, size=k).astype(np.int16)
+             for k in lay_rng.randint(2 * RATE, 20 * RATE + 1, size=64)]
+    lay_lens, lay_max, lay_dtype = lay_ex._host_batch(pcm16, 64)
+    buf, table = lay_ex._pack_rows(pcm16, lay_lens, lay_dtype, 0, 64)
+    lay_packed, lay_table = buf.to(dev), table.to(dev)
+    lay_args = (lay_packed, lay_table[1], lay_table[2], lay_max)
+    got = K.layout_rows(*lay_args)
+    want = K.layout_rows_plain(*lay_args)
+    padded_host = lay_ex._pad_rows(pcm16, lay_lens, lay_max, lay_dtype, 0, 64).to(dev)
+    err = max((got.int() - w.int()).abs().max().item() for w in (want, padded_host))
+    real = int(table[2].sum())
+    entries["layout_rows"] = dict(
+        replaces="none: the JAX package pads on the host (speech_tpu/parallel/extract.py:381 "
+                 "ShardedExtractor._dispatch)",
+        err=err, tol=0, ms=queued_ms(lambda: K.layout_rows(*lay_args)),
+        plain_ms=cuda_ms(lambda: K.layout_rows_plain(*lay_args), reps=3), ops=[],
+        nbytes=real * 2 + bytes_of(got, lay_table[1:]), source=LAYOUT_SOURCE,
+    )
+    e = entries["layout_rows"]
+    bound, _ = bound_ms(e)
+    print(f"layout_rows at the corpus shapes (64 x {lay_max} {lay_dtype}, {real * 2 / 1e6:.1f} MB "
+          f"packed): bitwise equal to layout_rows_plain and to _pad_rows: "
+          f"{torch.equal(got, want) and torch.equal(got, padded_host)}; {e['ms'] * 1e3:.1f} us "
+          f"on the card a launch (20 queued), {cuda_ms(lambda: K.layout_rows(*lay_args)) * 1e3:.1f} "
+          f"us a lone call with the host's launch; plain {e['plain_ms']:.3f} ms, bound "
+          f"{bound * 1e3:.1f} us ({100 * bound / e['ms']:.1f}%) [{smi}]", flush=True)
+    del got, want, padded_host, lay_packed, lay_table, lay_args, buf, table, pcm16
     for name, e in entries.items():
         print(f"{name} vs plain: max abs {e['err']:.3e} (tol {e['tol']:g}); "
               f"{e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms", flush=True)
@@ -1351,7 +1414,7 @@ def multidevice_phase(dev, smi, host):
         batches = [utts[f: f + 32] for f in firsts]
         ex = par.ShardedExtractor(comp, mesh)
         outs, got = driven(counted, lambda: list(ex.extract_iter(iter(batches))))
-        check(len(outs) == 8 and got["stft_feats_int8"] == 8,
+        check(len(outs) == 8 and got["stft_feats_int8"] == 8 and got["layout_rows"] == 8,
               f"extract_iter: {len(outs)} batches, launches {got}")
         iter_err = max(row_err(out, f) for f, out in zip(firsts, outs))
         check(iter_err <= TOL_INT8, f"extract_iter vs the plain route: {iter_err}")
@@ -2217,7 +2280,11 @@ def cli_phase(dev, smi, tmp):
           f"B1 launched {got_b1['stft_feats_rows']} times for {n_batches} batches")
     _, got_plain, wall_plain = run("signals-to-torch-feat-dir", map_path,
                                    cfg(fft_mode="matmul"), plain_dir, *extra)
-    check(not any(got_plain.values()), f"the plain path launched {got_plain}")
+    # the extractor lays each packed batch out on the card: its one launch
+    # a batch, and no feature kernel
+    feats_plain = {k: v for k, v in got_plain.items() if k != "layout_rows"}
+    check(not any(feats_plain.values()) and got_plain["layout_rows"] == n_batches,
+          f"the plain path launched {got_plain}")
     err_b1, kept, frames = 0.0, 0, 0
     for u in utts:
         a, b = pt(b1_dir, u).numpy(), pt(plain_dir, u).numpy()
@@ -2439,14 +2506,15 @@ def cold_start_phase(dev, smi, host, tmp):
     # (a) and (c): a fresh process, an empty store, the compilers reachable
     cold = child("cold", {})
     st = cold["stats"]
-    check(st["misses"] == 4 and st["hits"] == 0 and st["errors"] == 0 and st["fallbacks"] == 0,
+    check(st["misses"] == 5 and st["hits"] == 0 and st["errors"] == 0 and st["fallbacks"] == 0,
           f"cold store stats {st}")
-    check(sorted(cold["build_seconds"]) == ["double_kernels", "int8_kernels", "shorten",
-                                            "stft_kernels"], f"builds {cold['build_seconds']}")
+    check(sorted(cold["build_seconds"]) == ["double_kernels", "int8_kernels", "layout_kernels",
+                                            "shorten", "stft_kernels"],
+          f"builds {cold['build_seconds']}")
     store_bytes = AOTCache(store).size_bytes()
     print(f"cold start (a fresh process, an empty store, nvcc and g++ reachable): builds "
           f"{ {k: round(v, 3) for k, v in sorted(cold['build_seconds'].items())} } s "
-          f"(the three nvcc builds run together), stats {st}; first feature "
+          f"(the four nvcc builds run together), stats {st}; first feature "
           f"{cold['first_feature_s']:.3f} s after the spawn ({cold['split_s']}), whole child "
           f"{cold['wall_s']:.3f} s; store {store_bytes} bytes [{smi}]", flush=True)
 
@@ -2454,7 +2522,7 @@ def cold_start_phase(dev, smi, host, tmp):
     warm = child("warm", no_compilers)
     st = warm["stats"]
     check(not any(warm["compilers"].values()), f"the warm child found {warm['compilers']}")
-    check(st["misses"] == 0 and st["errors"] == 0 and st["fallbacks"] == 0 and st["hits"] == 4,
+    check(st["misses"] == 0 and st["errors"] == 0 and st["fallbacks"] == 0 and st["hits"] == 5,
           f"warm store stats {st}")
     check(warm["shorten_native"] and cold["shorten_native"], "shorten fell back to Python")
 

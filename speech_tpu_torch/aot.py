@@ -4,10 +4,10 @@ The counterpart of :mod:`speech_tpu.aot`, with its contract: *a warmed
 store compiles nothing*.  In the JAX package an entry is a serialized XLA
 executable; here nothing is compiled at run time but the native libraries,
 so an entry is one built shared library: ``stft_kernels``,
-``int8_kernels`` or ``double_kernels`` (``csrc/*.cu``, nvcc, sm_90a) or
-``shorten`` (``csrc/shorten.cpp``, g++).  A process on a fresh machine
-(or a fresh container) that finds its libraries in the store loads them
-and runs without a compiler.
+``int8_kernels``, ``double_kernels`` or ``layout_kernels`` (``csrc/*.cu``,
+nvcc, sm_90a) or ``shorten`` (``csrc/shorten.cpp``, g++).  A process on a
+fresh machine (or a fresh container) that finds its libraries in the store
+loads them and runs without a compiler.
 
 - **Key.** ``sha256(source bytes || flags || compute capability)``: the
   card's ``torch.cuda.get_device_capability`` for a CUDA library,
@@ -578,7 +578,8 @@ def precompile_extractor(
     ragged route), so the libraries of every route the run takes land in
     its store.  Returns the number of grid points exercised, two a
     bucket (store hits included).  ``progress`` (optional callable taking
-    a message) reports each point.
+    a message) reports each point; then the libraries of the extractor's
+    own batches (:meth:`~speech_tpu_torch.parallel.ShardedExtractor.load_libraries`).
     """
     import torch
 
@@ -603,4 +604,5 @@ def precompile_extractor(
                 lengths_np = np.full((b,), n, dtype=np.int64)
                 extractor.extract_batch(signals, lengths_np)
                 extractor.extract_batch(signals, torch.from_numpy(lengths_np))
+    extractor.load_libraries()
     return count

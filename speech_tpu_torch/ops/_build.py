@@ -5,9 +5,10 @@ shared library with a plain C interface, loaded with :mod:`ctypes`: no
 PyTorch headers, so a build takes seconds.  All sources compile at once,
 one ``nvcc`` each, which is why each kernel family keeps a source of its
 own: ``stft_kernels.cu`` (B1/B3, the fused float kernel),
-``int8_kernels.cu`` (B2, the int8 digit tiers on the tensor cores) and
-``double_kernels.cu`` (B4, the base-256 digit kernel).  Each library
-exports its own ``stk_error_string`` for its own error codes.  The
+``int8_kernels.cu`` (B2, the int8 digit tiers on the tensor cores),
+``double_kernels.cu`` (B4, the base-256 digit kernel) and
+``layout_kernels.cu`` (the zero-padded rows of a packed batch).  Each
+library exports its own ``stk_error_string`` for its own error codes.  The
 libraries live in a :class:`speech_tpu_torch.aot.AOTCache`, keyed by
 their source, flags and the card's compute capability under the nvcc
 release that built them, so an edited source rebuilds, an unchanged one

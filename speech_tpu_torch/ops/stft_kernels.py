@@ -16,6 +16,11 @@ The counterpart of :mod:`speech_tpu.ops.pallas_stft`:
   pair, on the bf16 tensor cores (``csrc/double_kernels.cu``).  No
   computer route runs it, as in the JAX package; it is public API on the
   ``pdk_*`` params.
+- :func:`layout_rows` replaces no TPU kernel: it lays a packed batch (each
+  row's real samples back to back, as ``ShardedExtractor`` sends them) out
+  as the zero-padded ``(rows, max_len)`` block the computers take, on the
+  card (``csrc/layout_kernels.cu``), so that the host writes and copies no
+  padding.
 
 Every wrapper casts its inputs as the JAX function does, checks device,
 dtype, shape and contiguity, and then runs its plain version for CPU
@@ -65,6 +70,8 @@ __all__ = [
     "float_launch_plan",
     "int8_launch_plan",
     "launch_counts",
+    "layout_rows",
+    "layout_rows_plain",
     "padded_need",
     "reset_launch_counts",
     "stft_feats_double",
@@ -181,6 +188,17 @@ _SIGNATURES = {
         ctypes.c_int,  # C
         _c_int_p,  # plan
     ],
+    "stk_layout_rows": [
+        ctypes.c_void_p,  # packed
+        ctypes.c_longlong,  # packed_len
+        ctypes.c_void_p,  # offsets
+        ctypes.c_void_p,  # counts
+        ctypes.c_longlong,  # rows
+        ctypes.c_longlong,  # max_len
+        ctypes.c_int,  # elem_bytes
+        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # stream
+    ],
 }
 # launcher -> the source (csrc/<stem>.cu) whose library exports it, beside
 # that library's own stk_error_string
@@ -191,6 +209,7 @@ _LIBRARIES = {
     "stk_float_plan": "stft_kernels",
     "stk_double_plan": "double_kernels",
     "stk_int8_plan": "int8_kernels",
+    "stk_layout_rows": "layout_kernels",
 }
 
 
@@ -1128,7 +1147,57 @@ def stft_feats_double(
     return out
 
 
-KERNELS = (stft_feats_rows, stft_feats_frames, stft_feats_int8, stft_feats_double)
+# --- the packed batch's row layout --------------------------------------------
+
+
+def layout_rows_plain(packed, offsets, counts, max_len: int):
+    """Plain version of :func:`layout_rows`, row by row, with the kernel's
+    clamps."""
+    n = packed.shape[0]
+    rows = torch.zeros((counts.shape[0], max_len), dtype=packed.dtype, device=packed.device)
+    for r, (off, k) in enumerate(zip(offsets.tolist(), counts.tolist())):
+        off = min(max(off, 0), n)
+        k = min(max(k, 0), max_len, n - off)
+        rows[r, :k] = packed[off: off + k]
+    return rows
+
+
+def layout_rows(packed, offsets, counts, max_len: int):
+    """The zero-padded ``(rows, max_len)`` block of a packed batch: row
+    ``r`` is the ``counts[r]`` elements of the 1-D ``packed`` from element
+    ``offsets[r]`` (int64 ``(rows,)`` tensors beside it), then zeros.
+    Counts are clamped to ``max_len`` and to the packed elements.  The
+    elements are copied as they are (2, 4 or 8 bytes, any dtype), so the
+    block is bit for bit the one a host would pad.  The kernel loads a row
+    in 16-byte vectors where its offset is a multiple of 16 bytes."""
+    if packed.dim() != 1 or not packed.is_contiguous():
+        raise ValueError(f"packed must be 1-D and contiguous, got {tuple(packed.shape)}")
+    if packed.element_size() not in (2, 4, 8):
+        raise ValueError(f"packed elements must be 2, 4 or 8 bytes, got {packed.dtype}")
+    for name, t in (("offsets", offsets), ("counts", counts)):
+        if t.dtype != torch.int64 or t.dim() != 1:
+            raise ValueError(f"{name} must be 1-D int64, got {t.dtype} {tuple(t.shape)}")
+    if offsets.shape != counts.shape:
+        raise ValueError(f"offsets {tuple(offsets.shape)} and counts {tuple(counts.shape)} differ")
+    if max_len < 0:
+        raise ValueError(f"max_len must not be negative, got {max_len}")
+    if packed.device.type == "cpu":
+        return layout_rows_plain(packed, offsets, counts, max_len)
+    _check_cuda(packed, offsets=offsets, counts=counts)
+    out = torch.empty((counts.shape[0], max_len), dtype=packed.dtype, device=packed.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(packed.device):
+        _launch(
+            "stk_layout_rows", "layout_rows",
+            packed.data_ptr(), packed.shape[0], offsets.data_ptr(), counts.data_ptr(),
+            counts.shape[0], max_len, packed.element_size(), out.data_ptr(), _stream(packed),
+        )
+    layout_rows.launches += 1
+    return out
+
+
+KERNELS = (stft_feats_rows, stft_feats_frames, stft_feats_int8, stft_feats_double, layout_rows)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -22,13 +22,18 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
+from ..aot import active_store, using
 from ..compute import _compact_transfer, _to_device
+from ..ops.stft_kernels import layout_rows
 from .mesh import axis_size, global_tensor, local_rows, local_tensor
 
 __all__ = ["ShardedExtractor", "sharded_pitch_feats"]
 
 
 _NULL = contextlib.nullcontext()
+# bytes each packed row starts on: the layout kernel loads such rows in
+# 16-byte vectors
+_PACK_ALIGN = 16
 
 
 def _no_stage(name):
@@ -151,6 +156,9 @@ class ShardedExtractor:
         )
         self.aot = as_cache(aot_dir)  # path, AOTCache, or None
         self.stats = {"batches": 0, "rows": 0, "samples": 0, "kernel_samples": 0}
+        # batches cross packed and are laid out on the card (a GPU), else
+        # padded on the host
+        self._packs = computer.device.type == "cuda"
         self._stats_lock = threading.Lock()
         self._local = threading.local()  # the stage of this thread's timed call
         if self.aot is not None:
@@ -282,12 +290,15 @@ class ShardedExtractor:
         return (getattr(self._local, "stage", None) or _no_stage)(name)
 
     def _dispatch(self, signals: Sequence[np.ndarray], min_batch: int = 0):
-        """Queue a batch on the device without waiting for it: this
-        process's rows are padded into a pinned host buffer (on a GPU) and
-        copied with ``non_blocking=True``, so nothing here synchronises
-        with the card.  ``min_batch`` pads the batch dimension up.  Inside
-        :meth:`_timed` the padding is stage ``"pad"`` and the queued
-        copies and launches ``"launch"``."""
+        """Queue a batch on the device without waiting for it.  On a GPU
+        this process's rows are packed, only their real samples, into a
+        pinned host buffer (:meth:`_pack_rows`), copied with
+        ``non_blocking=True`` and laid out as zero-padded rows on the card
+        (:meth:`_lay_out`); elsewhere they are padded on the host
+        (:meth:`_pad_rows`).  Nothing here synchronises with the card.
+        ``min_batch`` pads the batch dimension up.  Inside :meth:`_timed`
+        the packing (or padding) is stage ``"pad"`` and the queued copies
+        and launches, the layout's among them, ``"launch"``."""
         n = len(signals)
         if n == 0:
             return None, None, 0
@@ -295,9 +306,10 @@ class ShardedExtractor:
         lengths, max_len, buf_dtype = self._host_batch(signals, min_batch)
         start, per = self._row_block(lengths.size)
         with stage("pad"):
-            rows = self._pad_rows(signals, lengths, max_len, buf_dtype, start, per)
+            buf, table = self._host_rows(signals, lengths, max_len, buf_dtype, start, per)
         with stage("launch"):
-            feats, counts = self._run_block(rows, lengths, max_len, start)
+            rows, lens = self._lay_out(buf, table, max_len)
+            feats, counts = self._run_block(rows, lengths, max_len, start, lens)
         samples = int(lengths[start: max(start, min(start + per, n))].sum())
         with self._stats_lock:
             st = self.stats
@@ -323,6 +335,15 @@ class ShardedExtractor:
             return lengths, max_len, torch.int16
         return lengths, max_len, c._dtype
 
+    def _host_rows(self, signals, lengths, max_len: int, buf_dtype, start: int, per: int):
+        """The host's part of rows ``[start, start + per)`` of a global
+        batch, ``(buffer, table)``: packed (:meth:`_pack_rows`) where
+        batches cross packed, else the padded rows (:meth:`_pad_rows`) and
+        no table."""
+        if self._packs:
+            return self._pack_rows(signals, lengths, buf_dtype, start, per)
+        return self._pad_rows(signals, lengths, max_len, buf_dtype, start, per), None
+
     def _pad_rows(self, signals, lengths, max_len: int, buf_dtype, start: int, per: int):
         """Rows ``[start, start + per)`` of the padded global batch in a
         host buffer (pinned on a GPU); rows past ``signals`` are zeros."""
@@ -337,15 +358,70 @@ class ShardedExtractor:
             rows[r, k:] = 0
         return buf
 
-    def _run_block(self, rows, lengths, max_len: int, start: int):
+    def _pack_rows(self, signals, lengths, buf_dtype, start: int, per: int):
+        """Rows ``[start, start + per)`` of a global batch, packed: only
+        their real samples, back to back in one 1-D host buffer (pinned on
+        a GPU), each row from a multiple of 16 bytes, cast as
+        :meth:`_pad_rows` casts them; and an int64 ``(3, per)`` table
+        beside it (pinned too): the rows' ``lengths``, their offsets into
+        the buffer and their sample counts (0 for rows past ``signals``)."""
+        pin = self._computer.device.type == "cuda"
+        n = len(signals)
+        table = torch.empty((3, per), dtype=torch.int64, pin_memory=pin)
+        lens, offsets, counts = table.numpy()
+        lens[:] = lengths[start: start + per]
+        counts[:] = lens
+        counts[max(0, n - start):] = 0
+        align = _PACK_ALIGN // buf_dtype.itemsize
+        spans = -(-counts // align) * align
+        offsets[0] = 0
+        np.cumsum(spans[:-1], out=offsets[1:])
+        buf = torch.empty(max(int(spans.sum()), align), dtype=buf_dtype, pin_memory=pin)
+        flat = buf.numpy()
+        for r in range(min(per, max(0, n - start))):
+            k = counts[r]
+            if k:
+                flat[offsets[r]: offsets[r] + k] = signals[start + r]
+        return buf, table
+
+    def _lay_out(self, buf, table, max_len: int):
+        """``(rows, lengths)`` of :meth:`_host_rows`' ``(buffer, table)``.
+        A packed buffer is queued on the device: one copy of it and one of
+        its table, then the layout kernel's zero-padded ``(per, max_len)``
+        rows, and the rows' lengths on the device.  Padded rows (no table)
+        are as they are (:meth:`_run_block` copies them), the lengths
+        None."""
+        if table is None:
+            return buf, None
+        dev = self._computer.device
+        table = table.to(dev, non_blocking=True)
+        with using(self._computer._aot):
+            rows = layout_rows(buf.to(dev, non_blocking=True), table[1], table[2], max_len)
+        return rows, table[0]
+
+    def load_libraries(self):
+        """Load (into the computer's store, where it has one) the kernel
+        libraries this extractor's batches need beside the computer's own:
+        every one where batches cross packed (a GPU), for the layout
+        kernel, whatever route the computer takes.
+        :func:`~speech_tpu_torch.aot.precompile_extractor` calls it."""
+        if self._packs:
+            from ..ops import _build
+
+            with using(self._computer._aot):
+                _build.load_kernels(active_store())
+
+    def _run_block(self, rows, lengths, max_len: int, start: int, lens=None):
         """Queue the features of one process's row block ``rows`` (host or
         device), the rows ``[start, start + len(rows))`` of a global batch
-        whose row lengths are ``lengths``."""
+        whose row lengths are ``lengths`` (``lens``: that block of them,
+        where it is on the device already)."""
         dev = self._computer.device
         full = self._is_full(lengths, max_len)
-        lens = torch.from_numpy(lengths[start: start + rows.shape[0]])
-        if dev.type == "cuda":
-            lens = lens.pin_memory()
+        if lens is None:
+            lens = torch.from_numpy(lengths[start: start + rows.shape[0]])
+            if dev.type == "cuda":
+                lens = lens.pin_memory()
         return self._run(
             rows.to(dev, non_blocking=True), lens.to(dev, non_blocking=True), full
         )

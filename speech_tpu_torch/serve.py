@@ -82,6 +82,10 @@ def _follower_error(name: str) -> RuntimeError:
     )
 
 
+# the dispatcher holds nothing (None is the stop it may hold)
+_NOTHING = object()
+
+
 class _Warmup:
     """A warm-up the dispatcher runs between micro-batches."""
 
@@ -337,9 +341,9 @@ class FeatureServer:
         while filling a batch is held until that batch is dispatched.
         """
         pending = None  # (batch, dispatch result) awaiting its readback
-        held = None
+        held = _NOTHING  # the warm-up or stop (None) met while filling
         while True:
-            item, held = (self._queue.get() if held is None else held), None
+            item, held = (self._queue.get() if held is _NOTHING else held), _NOTHING
             if item is None or isinstance(item, _Warmup):
                 if pending is not None:
                     self._resolve(pending)
@@ -373,7 +377,7 @@ class FeatureServer:
                 self._resolve(prev)
             if disp is None:
                 self._retry_individually(batch)
-            elif held is not None or self._queue.empty():
+            elif held is not _NOTHING or self._queue.empty():
                 self._resolve(pending)
                 pending = None
 
@@ -385,7 +389,8 @@ class FeatureServer:
             return self._extractor._dispatch(signals, min_batch=min_batch)
         ex = self._extractor
         lengths, max_len, buf_dtype = ex._host_batch(signals, min_batch)
-        rows = ex._pad_rows(signals, lengths, max_len, buf_dtype, 0, lengths.size)
+        buf, table = ex._host_rows(signals, lengths, max_len, buf_dtype, 0, lengths.size)
+        rows, _ = ex._lay_out(buf, table, max_len)
         self._seq += 1
         self._relay.send(_relay.BATCH, self._seq, max_len, int(buf_dtype == torch.int16),
                          len(signals), lengths)
@@ -393,7 +398,8 @@ class FeatureServer:
 
     def _relayed(self, lengths, max_len: int, buf_dtype, n: int, rows=None):
         """This rank's part of a relayed micro-batch: its row block from
-        the front (``rows``: the front's whole padded batch on the host),
+        the front (``rows``: the front's whole padded batch, on its card
+        or on the host),
         its features queued, and every rank's agreement that its part ran;
         raises if any rank's part failed."""
         ex, relay = self._extractor, self._relay

@@ -341,10 +341,11 @@ from speech_tpu_torch.ops import _build
 assert aot.find_compiler("nvcc") is None
 store = aot.AOTCache(sys.argv[1])
 libs = _build.load_kernels(store)
-assert sorted(libs) == ["double_kernels", "int8_kernels", "stft_kernels"], sorted(libs)
-assert libs["int8_kernels"].stk_error_string
+assert sorted(libs) == ["double_kernels", "int8_kernels", "layout_kernels", "stft_kernels"], \
+    sorted(libs)
+assert libs["int8_kernels"].stk_error_string and libs["layout_kernels"].stk_layout_rows
 assert store.stats["misses"] == 0 and store.stats["errors"] == 0, store.stats
-assert store.stats["hits"] == 3, store.stats
+assert store.stats["hits"] == 4, store.stats
 """
 
 
@@ -354,22 +355,23 @@ def test_load_kernels_builds_each_source_once(tmp_path, stand_in_nvcc, monkeypat
     store = AOTCache(str(tmp_path / "store"))
     libs = _build.load_kernels(store)
     assert sorted(_calls(log)) == sources  # one nvcc per .cu, cold
-    assert store.stats["misses"] == 3 and set(store.build_seconds) == set(libs)
+    assert len(sources) == 4 and store.stats["misses"] == 4
+    assert set(store.build_seconds) == set(libs)
     assert _build.load_kernels(store) is libs  # asked once a process
     monkeypatch.setattr(aot, "_LOADED", {})
     warm = AOTCache(store.directory)
     _build.load_kernels(warm)
-    assert warm.stats["hits"] == 3 and warm.stats["misses"] == 0
-    assert len(_calls(log)) == 3  # none on a warmed store
+    assert warm.stats["hits"] == 4 and warm.stats["misses"] == 0
+    assert len(_calls(log)) == 4  # none on a warmed store
     # nor in a process with no nvcc at all
     _child(_KERNELS_CHILD, _no_compiler_env(tmp_path), store.directory)
-    assert len(_calls(log)) == 3
+    assert len(_calls(log)) == 4
     # the card's capability is part of the key
     monkeypatch.setattr(aot, "device_capability", lambda: "sm_90")
     other = AOTCache(store.directory)
     _build.load_kernels(other)
-    assert len(_calls(log)) == 6 and other.stats["misses"] == 3
-    assert len(_entries(store.directory)) == 6
+    assert len(_calls(log)) == 8 and other.stats["misses"] == 4
+    assert len(_entries(store.directory)) == 8
 
 
 def test_enable_aot_after_a_first_load_completes_the_store(tmp_path, stand_in_nvcc):
@@ -383,9 +385,9 @@ def test_enable_aot_after_a_first_load_completes_the_store(tmp_path, stand_in_nv
     computer.enable_aot(str(tmp_path / "after"))
     with aot.using(computer._aot):
         fn, _ = K._launcher("stk_int8_feats")
-    assert len(_calls(log)) == 3  # no second build
-    assert computer._aot.stats["misses"] == 3 and computer._aot.stats["hits"] == 0
-    assert len(_entries(tmp_path / "after")) == 3
+    assert len(_calls(log)) == 4  # no second build
+    assert computer._aot.stats["misses"] == 4 and computer._aot.stats["hits"] == 0
+    assert len(_entries(tmp_path / "after")) == 4
     assert fn is getattr(first["int8_kernels"], "stk_int8_feats")
     # outside the block, the wrappers read the process default again
     assert aot.active_store() is aot.default_store()
@@ -452,6 +454,34 @@ def test_precompile_extractor_grid(tmp_path):
     # buckets {1024, 2048, 4096} x batches {3, 4} x 2 dtypes, two routes each
     assert n == 24 and len(seen) == 12
     assert seen[0] == "precompile bucket=1024 batch=3 dtype=float32"
+
+
+def test_precompile_stores_the_layout_kernel_and_prune_keeps_it(tmp_path, stand_in_nvcc,
+                                                                 capsys):
+    """Where batches cross packed (a GPU), ``--precompile``'s grid stores
+    the layout kernel's library whatever route the computer takes (here
+    the plain one, which loads no library), and ``--aot-prune`` keeps it."""
+    import speech_tpu_torch.command_line as tcli
+
+    store = str(tmp_path / "store")
+    ex = ShardedExtractor(_computer(), aot_dir=store)
+    assert precompile_extractor(ex, [1000], batches=[2]) == 2
+    assert _entries(store) == []  # the CPU routes load no library
+    ex._packs = True
+    assert precompile_extractor(ex, [1000], batches=[2]) == 2
+    names = sorted(os.path.basename(p).split("-")[0] for p in _entries(store))
+    assert names == ["double_kernels", "int8_kernels", "layout_kernels", "stft_kernels"]
+    assert ex.aot.stats["misses"] == 4
+    stale = tmp_path / "store" / "fp-feedfacefeedface"
+    stale.mkdir()
+    (stale / "old.so").write_bytes(b"x")
+    rc = tcli.signals_to_torch_feat_dir(
+        [_corpus(tmp_path), _cli_config(device="cpu"), str(tmp_path / "out"),
+         "--aot-dir", store, "--aot-prune"])
+    assert rc == 0
+    assert "1 orphan(s) swept, 0 evicted, 4 kept" in capsys.readouterr().out
+    kept = sorted(os.path.basename(p).split("-")[0] for p in _entries(store))
+    assert kept == names
 
 
 # --- the CLIs -------------------------------------------------------------------

@@ -832,6 +832,138 @@ def test_sharded_extractor_nccl_world1_runs_b2(tmp_path):
         dist.destroy_process_group()
 
 
+# --- packed batches: the layout kernel ---------------------------------------
+
+
+def _bits(t):
+    """The tensor's raw bits, so that NaN and -0.0 compare as bits."""
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _layout_signals(rng, dtype, lengths):
+    if np.dtype(dtype).kind == "i":
+        return [rng.randint(-32768, 32768, size=n).astype(dtype) for n in lengths]
+    sigs = [(rng.randn(n) * 1000).astype(dtype) for n in lengths]
+    sigs[0][:4] = [-0.0, np.nan, np.inf, -np.inf]  # copied as they are
+    return sigs
+
+
+# (signal dtype, buffer dtype): the three element sizes, and the host's cast
+LAYOUT_DTYPES = [(np.int16, torch.int16), (np.float32, torch.float32),
+                 (np.float64, torch.float64), (np.float32, torch.float64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig_dtype,buf_dtype", LAYOUT_DTYPES,
+                         ids=[f"{np.dtype(a).name}-{str(b)[6:]}" for a, b in LAYOUT_DTYPES])
+def test_layout_kernel_matches_host_padding(sig_dtype, buf_dtype):
+    """The packed rows laid out by the kernel are the host-padded rows bit
+    for bit: ragged rows, ``min_batch`` rows past the batch, mesh blocks
+    with ``start > 0``; a long batch before short ones, so that stale
+    pinned or device memory would show."""
+    from speech_tpu_torch import parallel as par
+
+    dev = _device()
+    ex = par.ShardedExtractor(STFTFrameComputer(dict(BANK), frame_length_ms=25,
+                                                frame_shift_ms=10, device=dev))
+    assert ex._packs
+    rng = np.random.RandomState(41)
+    K.reset_launch_counts()
+    launches = 0
+    for lengths in ([300000, 160000, 9001, 77777, 32000], [20000, 3, 400, 16001], [999, 2]):
+        sigs = _layout_signals(rng, sig_dtype, lengths)
+        lens, max_len, _ = ex._host_batch(sigs, 8)
+        for start, per in ((0, 8), (2, 3), (4, 4), (6, 2)):
+            want = ex._pad_rows(sigs, lens, max_len, buf_dtype, start, per)
+            rows, dlens = ex._lay_out(*ex._pack_rows(sigs, lens, buf_dtype, start, per),
+                                      max_len)
+            launches += 1
+            assert rows.device.type == "cuda" and rows.shape == want.shape
+            assert torch.equal(_bits(rows.cpu()), _bits(want)), (lengths, start)
+            assert dlens.cpu().tolist() == lens[start: start + per].tolist()
+    assert K.launch_counts()["layout_rows"] == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32, torch.float64])
+def test_layout_kernel_unaligned_rows_and_odd_widths(dtype):
+    """The kernel against its plain version off the packed path's
+    alignment: offsets not on 16 bytes (element loads), widths that are no
+    multiple of 16 bytes and a packed buffer that does not start on 16
+    bytes (element stores), counts past the width or the buffer (clamped),
+    and more rows than a grid's y dimension."""
+    dev = _device()
+    rng = np.random.RandomState(42)
+    host = torch.from_numpy(rng.randint(-30000, 30000, 50001)).to(dtype)
+    offsets = torch.tensor([0, 1, 7, 8, 1000, 49990, 60000, 5], dtype=torch.int64)
+    counts = torch.tensor([5000, 4999, 3, 0, 12345, 100, 10, 70000], dtype=torch.int64)
+    packed = host.to(dev)
+    for p, h in ((packed, host), (packed[1:], host[1:])):
+        for max_len in (8192, 8191, 6000, 1):
+            want = K.layout_rows_plain(h, offsets, counts, max_len)
+            got = K.layout_rows(p, offsets.to(dev), counts.to(dev), max_len)
+            assert torch.equal(_bits(got.cpu()), _bits(want)), max_len
+    many = torch.arange(70000, dtype=torch.int64)
+    got = K.layout_rows(packed, many.to(dev), (many % 5).to(dev), 8)
+    want = K.layout_rows_plain(host, many, many % 5, 8)
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+def _route_computer(route, dev):
+    from speech_tpu_torch.compute import SIFrameComputer
+
+    if route == "si":
+        bank = {"name": "gammatone", "scaling_function": "mel", "num_filts": 40,
+                "sampling_rate": 16000}
+        return SIFrameComputer(bank, frame_shift_ms=10, include_energy=True, device=dev)
+    if route == "float64":
+        return STFTFrameComputer(dict(BANK), frame_length_ms=25, frame_shift_ms=10,
+                                 include_energy=True, dtype="float64", device=dev)
+    return STFTFrameComputer(dict(BANK), frame_length_ms=25, frame_shift_ms=10,
+                             precision="double", device=dev)
+
+
+# (route, signal dtype, batch, seconds): B2 at 'double' on the corpus cell's
+# shapes (64 rows of 2-20 s int16 PCM, pow2 buckets), SI (which needs zero
+# padding) on float32, a float64 computer fed float32 (the host's cast)
+EXTRACT_ROUTES = [("double", np.int16, 64, (2, 20)), ("si", np.float32, 8, (1, 5)),
+                  ("float64", np.float32, 8, (1, 5))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,sig_dtype,batch,seconds", EXTRACT_ROUTES,
+                         ids=[r[0] for r in EXTRACT_ROUTES])
+def test_extract_iter_packed_matches_host_padding(route, sig_dtype, batch, seconds):
+    """``extract_iter`` on the card through the packed path gives the
+    features of the host-padding path bit for bit, one layout launch a
+    batch, and the host never pads."""
+    from speech_tpu_torch import parallel as par
+
+    dev = _device()
+    comp = _route_computer(route, dev)
+    rng = np.random.RandomState(43)
+    batches = []
+    for k in (batch, batch // 2, batch - 1):  # a full batch, then shorter ones
+        n = rng.randint(seconds[0] * 16000, seconds[1] * 16000, size=k)
+        batches.append([(s * 0.3).astype(sig_dtype) if sig_dtype != np.int16 else s
+                        for s in _layout_signals(rng, np.int16, n)])
+    host = par.ShardedExtractor(comp)
+    host._packs = False
+    packed = par.ShardedExtractor(comp)
+    assert packed._packs
+    K.reset_launch_counts()
+    want = list(host.extract_iter(batches, min_batch=batch))
+    assert K.launch_counts()["layout_rows"] == 0  # the host padded
+    packed._pad_rows = None  # a call would raise
+    got = list(packed.extract_iter(batches, min_batch=batch))
+    assert K.launch_counts()["layout_rows"] == len(batches)
+    for w, g in zip(want, got):
+        assert len(w) == len(g)
+        for a, b in zip(w, g):
+            assert a.shape == b.shape and np.array_equal(a, b)
+    assert packed.stats == host.stats
+
+
 @pytest.mark.cuda
 def test_export_computer_double_runs_b2_with_trained_params():
     """After a training step of the frontend on the card, its exported 'double'

@@ -221,11 +221,19 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
         K.stft_feats_double(x, tc.params, dft_size=jc.dft_size, **kw),
         K.stft_feats_double_plain(x, tc.params, dft_size=jc.dft_size, **kw),
     )
+    flat = x.reshape(-1).contiguous()
+    offsets = torch.tensor([0, 100], dtype=torch.int64)
+    counts = torch.tensor([50, 3000], dtype=torch.int64)
+    assert torch.equal(
+        K.layout_rows(flat, offsets, counts, 4096),
+        K.layout_rows_plain(flat, offsets, counts, 4096),
+    )
     assert K.launch_counts() == {
         "stft_feats_rows": 0,
         "stft_feats_frames": 0,
         "stft_feats_int8": 0,
         "stft_feats_double": 0,
+        "layout_rows": 0,
     }
 
 

@@ -236,6 +236,19 @@ def test_feature_server_close_resolves_stragglers():
         straggler.result(timeout=30)
 
 
+def test_feature_server_close_while_a_batch_fills():
+    """A close that reaches the dispatcher while it waits for a batch to
+    fill stops it once that batch is served (the stop is held, not lost)."""
+    server = FeatureServer(_computer(), max_batch=4, max_wait_ms=2000.0)
+    fut = server.submit(np.zeros(4000))
+    time.sleep(0.2)  # the dispatcher waits for more requests
+    closer = threading.Thread(target=server.close, daemon=True)
+    closer.start()
+    closer.join(timeout=60)
+    assert not closer.is_alive()
+    assert fut.result(timeout=0).shape[0] > 0
+
+
 def test_feature_server_default_device_is_cuda():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
