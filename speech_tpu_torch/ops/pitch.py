@@ -29,6 +29,7 @@ The reference takes its float32 logs through a bit-level ``log32``
 ``torch.log`` on the card and the CPU is accurate, so the port uses it.
 """
 
+import inspect
 from functools import lru_cache
 from math import gcd
 from typing import NamedTuple, Optional
@@ -48,6 +49,7 @@ __all__ = [
     "nccf_to_pov",
     "pitch_feats",
     "pitch_feats_from_track",
+    "pitch_frame_counts",
 ]
 
 
@@ -227,7 +229,7 @@ def _nccf_1d(
     return nccf_pitch, nccf_pov, fvalid
 
 
-def _viterbi(nc, tmat):
+def _viterbi(nc, tmat, counts=None):
     """The lag path minimising ``sum_t -nc[t, lag_t] + tmat[lag_t-1,
     lag_t]`` for ``(T, ..., L)`` local scores: ``(T, ...)`` int64 indices.
 
@@ -239,14 +241,25 @@ def _viterbi(nc, tmat):
     frame, and in float32 their rounding at 10 s (an ulp near 1,000 is
     6e-5) passes the 1e-5 cost of a step between neighbouring lags, so the
     float32 path strays from the float64 one on clean tones (as the
-    reference's does); shifted, it keeps to it."""
+    reference's does); shifted, it keeps to it.
+
+    ``counts`` (``(...)`` frame counts, on the device) ends each row's path
+    at its count: past it the row's costs stay as they were, and its path
+    stays at its last frame's lag.  Through a batch's padding frames (zero
+    scores) the costs would spread until lags near the best one tie to
+    float32's rounding, and the path's last frames could come back one lag
+    off the row's own."""
     cost = -nc[0]
     cost = cost - torch.amin(cost, dim=-1, keepdim=True)
     costs = []
+    if counts is not None:
+        ahead = torch.arange(nc.shape[0], device=nc.device).reshape((-1,) + (1,) * counts.dim())
+        active = (ahead < counts)[..., None]
     for t in range(1, nc.shape[0]):
         costs.append(cost)
-        cost = torch.amin(cost[..., :, None] + tmat, dim=-2) - nc[t]
-        cost = cost - torch.amin(cost, dim=-1, keepdim=True)
+        step = torch.amin(cost[..., :, None] + tmat, dim=-2) - nc[t]
+        step = step - torch.amin(step, dim=-1, keepdim=True)
+        cost = step if counts is None else torch.where(active[t], step, cost)
     j = torch.argmin(cost, dim=-1)
     path = [j]
     for cost_t in reversed(costs):
@@ -262,18 +275,20 @@ def _choose_lags(
     tables,
     resolution: float,
     soft_min_f0: float,
+    counts=None,
 ):
     """Viterbi lag choice + parabolic refinement, batched over leading
     axes of ``(..., T, L)`` NCCFs: returns ``(f0, nccf_best)``, ``(..., T)``
     each.  One loop serves the whole batch (each step a ``[..., L, L]``
-    min)."""
+    min); ``counts`` ends each row's path at its valid frames
+    (:func:`_viterbi`)."""
     _, _, fine, _, trans = tables
     # local cost -nccf_eff: long lags discounted by soft_min_f0 * lag
     # seconds (Kaldi's soft-min-f0), which breaks the exact ties a periodic
     # signal puts at every multiple of its true lag
     tmat = _const(trans, nccf_pitch)
     nccf_eff = nccf_pitch * _const(_soft_discount(fine, rate, soft_min_f0), nccf_pitch)
-    path = _viterbi(torch.movedim(nccf_eff, -2, 0), tmat)
+    path = _viterbi(torch.movedim(nccf_eff, -2, 0), tmat, counts)
     return _refine_lags(torch.movedim(path, 0, -1), nccf_pov, rate, fine, resolution)
 
 
@@ -345,6 +360,40 @@ def _work_geometry(
     return work_rate, up, down, window, shift, tables
 
 
+# the keyword arguments of kaldi_pitch that set its frame grid
+_GRID_KEYS = (
+    "min_f0",
+    "max_f0",
+    "frame_length_ms",
+    "frame_shift_ms",
+    "resample_rate",
+    "penalty_factor",
+    "lag_resolution",
+)
+
+
+def pitch_frame_counts(padded_len: int, lengths, rate: float, **kwargs):
+    """The frame grid of :func:`kaldi_pitch` on the host, from shapes and
+    lengths alone: ``(frames, valid)``, the frames a ``(..., padded_len)``
+    batch is tracked over (0 where the rows are too short for one, where
+    :func:`kaldi_pitch` raises) and each row's valid count (numpy, like
+    ``lengths``).  Keyword arguments are :func:`pitch_feats`': an unknown
+    name raises, and those that do not set the grid are not used."""
+    params = inspect.signature(kaldi_pitch).parameters
+    unknown = set(kwargs) - set(params) - {"normalization_window", "delta_window"}
+    if unknown:
+        raise TypeError(f"unknown pitch arguments: {sorted(unknown)}")
+    grid = {k: kwargs.get(k, params[k].default) for k in _GRID_KEYS}
+    _, up, down, window, shift, tables = _work_geometry(rate, **grid)
+    span = _nccf_span(window, tables)
+
+    def count(n):
+        n = -(-np.asarray(n, np.int64) * up // down)
+        return np.where(n >= span, (n - span) // shift + 1, 0)
+
+    return int(count(padded_len)), count(lengths)
+
+
 def kaldi_pitch(
     signal,
     rate: float,
@@ -386,7 +435,8 @@ def kaldi_pitch(
         signal = signal.to(torch.float32)
     S = signal.shape[-1]
     batch_shape = signal.shape[:-1]
-    if lengths is None:
+    ragged = lengths is not None
+    if not ragged:
         lengths = torch.full(batch_shape, S, dtype=torch.int64, device=signal.device)
     else:
         lengths = as_tensor(lengths, signal.device).to(signal.device, torch.int64)
@@ -431,7 +481,8 @@ def kaldi_pitch(
     ]
     nccf_pitch, nccf_pov, valid = (torch.cat(p) for p in zip(*parts))
     f0, nccf = _choose_lags(
-        nccf_pitch, nccf_pov, work_rate, tables, float(lag_resolution), float(soft_min_f0)
+        nccf_pitch, nccf_pov, work_rate, tables, float(lag_resolution), float(soft_min_f0),
+        counts=valid.sum(dim=-1) if ragged else None,
     )
     T = f0.shape[-1]
     return PitchTrack(
@@ -508,12 +559,11 @@ def pitch_feats_from_track(
     # all-unvoiced valid stretches at their own mean
     w = torch.where(valid, nccf_to_pov(nccf).to(f0.dtype) + 1e-6, 0.0)
     T = f0.shape[-1]
-    # a plain centered window, clipped at both ends
-    idx = np.arange(T)
-    lo = torch.as_tensor(np.maximum(idx - normalization_window // 2, 0), device=f0.device)
-    hi = torch.as_tensor(
-        np.minimum(idx - normalization_window // 2 + normalization_window, T), device=f0.device
-    )
+    # a plain centered window, clipped at both ends (made on the device:
+    # a table copied from the host would wait for the card)
+    idx = torch.arange(T, device=f0.device) - normalization_window // 2
+    lo = torch.clamp_min(idx, 0)
+    hi = torch.clamp_max(idx + normalization_window, T)
 
     def windowed_sum(x):
         c = torch.cumsum(x, dim=-1)

@@ -111,7 +111,7 @@ def deltas(
     outs = [features]
     for filt in filts:
         filt = np.asarray(filt)
-        coef = torch.tensor(filt, dtype=features.dtype, device=features.device)
+        coef = host_constant(filt, features.dtype, features.device)
         off = (filt.shape[0] - 1) // 2
         if lengths is None:
             padded = _edge_pad(features, time_axis, off, off)

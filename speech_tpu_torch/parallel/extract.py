@@ -116,6 +116,17 @@ class ShardedExtractor:
         computer takes its kernels from it (``computer.enable_aot``), so a
         store a previous process (or ``--precompile``) warmed serves with
         no compiler.  The store is ``self.aot``.
+    pitch
+        Optional keyword arguments of
+        :func:`speech_tpu_torch.ops.pitch.pitch_feats` (``{}`` for its
+        defaults; ``frame_shift_ms`` defaults to the computer's).  Each row
+        then gains Kaldi-style pitch's three columns (POV, normalized log
+        pitch, delta log pitch) after the features and any
+        ``postprocessors``: the tracker runs on the device rows the
+        computer got, each process on its own row block, and the columns
+        are joined on the device to the features' frame count, rows past
+        the track repeating its last frame (no track: zeros), as the
+        CLIs' ``--pitch`` pastes them.
 
     Attributes
     ----------
@@ -125,7 +136,10 @@ class ShardedExtractor:
         ``rows`` (padded rows), ``samples`` (the real samples of those
         rows) and ``kernel_samples`` (rows times the bucket length: what
         the computer was handed).  ``samples / kernel_samples`` is the
-        share of the computer's input that is not padding.
+        share of the computer's input that is not padding.  With
+        ``pitch``, also ``pitch_frames`` (rows times the frames the
+        tracker ran over) and ``pitch_valid_frames`` (the rows' tracked
+        frames).
     """
 
     def __init__(
@@ -136,6 +150,7 @@ class ShardedExtractor:
         bucket: str = "pow2",
         postprocessors=(),
         aot_dir=None,
+        pitch=None,
     ):
         from ..aot import as_cache
         from ..ops.postops import device_post_chain
@@ -156,6 +171,11 @@ class ShardedExtractor:
         )
         self.aot = as_cache(aot_dir)  # path, AOTCache, or None
         self.stats = {"batches": 0, "rows": 0, "samples": 0, "kernel_samples": 0}
+        self._pitch = None
+        if pitch is not None:
+            self._pitch = {"frame_shift_ms": computer.frame_shift_ms, **pitch}
+            self._pitch_grid(0, [])  # unknown keys and a bad grid fail here
+            self.stats.update(pitch_frames=0, pitch_valid_frames=0)
         # batches cross packed and are laid out on the card (a GPU), else
         # padded on the host
         self._packs = computer.device.type == "cuda"
@@ -240,7 +260,10 @@ class ShardedExtractor:
         if not isinstance(lengths, torch.Tensor):
             lengths = torch.as_tensor(np.asarray(lengths))
         lengths = lengths.to(device=dev, dtype=torch.int64)
-        return self._wrap(*self._run(signals, lengths, full))
+        feats, counts = self._run(signals, lengths, full)
+        if self._pitch is not None:
+            feats = self._with_pitch(feats, signals, lengths)
+        return self._wrap(feats, counts)
 
     def extract_iter(self, batches, min_batch: int = 0, timer=None):
         """Double-buffered extraction over an iterable of signal lists.
@@ -298,7 +321,9 @@ class ShardedExtractor:
         (:meth:`_pad_rows`).  Nothing here synchronises with the card.
         ``min_batch`` pads the batch dimension up.  Inside :meth:`_timed`
         the packing (or padding) is stage ``"pad"`` and the queued copies
-        and launches, the layout's among them, ``"launch"``."""
+        and launches, the layout's among them, ``"launch"``, and with
+        ``pitch`` the tracker's launches on the same device rows
+        ``"pitch"``."""
         n = len(signals)
         if n == 0:
             return None, None, 0
@@ -310,6 +335,14 @@ class ShardedExtractor:
         with stage("launch"):
             rows, lens = self._lay_out(buf, table, max_len)
             feats, counts = self._run_block(rows, lengths, max_len, start, lens)
+        if self._pitch is not None:
+            own = lengths[start: start + per]
+            with stage("pitch"):
+                dev = self._computer.device
+                if lens is None:
+                    lens = torch.from_numpy(own)
+                feats = self._with_pitch(feats, rows.to(dev), lens.to(dev))
+            frames, valid = self._pitch_grid(max_len, own)
         samples = int(lengths[start: max(start, min(start + per, n))].sum())
         with self._stats_lock:
             st = self.stats
@@ -317,7 +350,44 @@ class ShardedExtractor:
             st["rows"] += per
             st["samples"] += samples
             st["kernel_samples"] += per * max_len
+            if self._pitch is not None:
+                st["pitch_frames"] += per * frames
+                st["pitch_valid_frames"] += int(valid.sum())
         return (*self._wrap(feats, counts), n)
+
+    def _pitch_grid(self, max_len: int, lengths):
+        """The tracker's frames over rows of ``max_len`` samples and each
+        row's tracked frames, on the host
+        (:func:`~speech_tpu_torch.ops.pitch.pitch_frame_counts`)."""
+        from ..ops.pitch import pitch_frame_counts
+
+        rate = self._computer.bank.sampling_rate
+        return pitch_frame_counts(max_len, lengths, rate, **self._pitch)
+
+    def _with_pitch(self, feats, rows, lens):
+        """``(rows, frames, num_coeffs)`` ``feats`` with the pitch columns
+        of the device ``rows`` (compact integers upcast once) and their
+        ``lens`` joined on: rows past a track repeat its last frame, and a
+        row with no track (or rows too short for the tracker's first
+        frame) gets zeros.  Queued on the device, inside a profiler range
+        ``"extract.pitch"``; nothing waits for the card."""
+        from ..ops.pitch import pitch_feats
+
+        with torch.profiler.record_function("extract.pitch"):
+            cols = feats.new_zeros(feats.shape[:-1] + (3,))
+            if self._pitch_grid(rows.shape[-1], [])[0]:
+                p3, valid = pitch_feats(
+                    rows.to(self._computer._dtype),
+                    self._computer.bank.sampling_rate,
+                    lengths=lens,
+                    return_valid=True,
+                    **self._pitch,
+                )
+                last = torch.clamp_min(valid - 1, 0)[:, None]
+                at = torch.minimum(torch.arange(cols.shape[1], device=last.device), last)
+                tail = torch.take_along_dim(p3, at[..., None], dim=1)
+                cols = torch.where((valid > 0)[:, None, None], tail.to(cols.dtype), cols)
+            return torch.cat([feats, cols], dim=-1)
 
     def _host_batch(self, signals: Sequence[np.ndarray], min_batch: int = 0):
         """The host side of a global batch of ``signals``: every row's

@@ -964,6 +964,90 @@ def test_extract_iter_packed_matches_host_padding(route, sig_dtype, batch, secon
     assert packed.stats == host.stats
 
 
+# Kaldi pitch as an ESPnet1 recipe runs it (lag_resolution 0.005: 418 lags)
+PITCH = {"lag_resolution": 0.005}
+
+
+def _voiced(rng, n, rate=16000):
+    """int16 pulse trains gliding within 80-300 Hz over noise."""
+    t = np.arange(n) / rate
+    f0 = 80.0 * (300.0 / 80.0) ** (0.5 + 0.5 * np.sin(2 * np.pi * t / rng.uniform(0.5, 2.0)))
+    pulses = np.diff(np.floor(np.cumsum(f0) / rate), prepend=0.0)
+    x = np.convolve(pulses, np.exp(-np.arange(80) / 12.0))[:n] + 0.05 * rng.randn(n)
+    return np.round(x / np.abs(x).max() * 8000).astype(np.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:Synchronization debug mode is a prototype")
+@pytest.mark.filterwarnings("ignore:Warning. Profiler clears events")
+def test_extract_iter_pitch_on_card_matches_cpu():
+    """``extract_iter`` with pitch on the card against the CPU device in
+    float64: B1's 80 columns within its 'highest' error, and the three
+    pitch columns as the corpus pitch cell holds them (a lag more than a
+    grid step off on at most 0.1% of the rows; the 99th percentiles of
+    the columns' errors on the others: POV 2e-5, log pitch 1e-3, delta
+    1e-6; a float32 lag one step off the float64 one on a near-tie moves a
+    few rows by up to a step, which the percentiles leave out).  The POV's
+    is four times the cell's limit: these pulse trains voice almost fully,
+    and near an NCCF of 1 the POV's slope is a hundred times its slope at
+    0.5 (the CPU's float32 reads 4.4e-6 here).  The
+    dispatch queues no host synchronisation, a batch copies its samples to
+    the card once, as without pitch, and the timer has a ``"pitch"``
+    stage."""
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.profiling import StageTimer
+
+    dev = _device()
+
+    def computer(device, **kw):
+        return STFTFrameComputer({**BANK, "num_filts": 80}, frame_length_ms=25,
+                                 frame_shift_ms=10, device=device, **kw)
+
+    rng = np.random.RandomState(44)
+    batches = [[_voiced(rng, n) for n in rng.randint(2 * 16000, 6 * 16000, size=k)]
+               for k in (8, 5)]
+    card = par.ShardedExtractor(computer(dev, precision="highest", fft_mode="pallas"),
+                                pitch=PITCH)
+    plain = par.ShardedExtractor(computer(dev, precision="highest", fft_mode="pallas"))
+    cpu = par.ShardedExtractor(computer("cpu", dtype="float64"), pitch=PITCH)
+    list(card.extract_iter(batches, min_batch=8))  # host tables to the card once
+    list(plain.extract_iter(batches, min_batch=8))
+    torch.cuda.synchronize()
+
+    def h2d(ex):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            list(ex.extract_iter(batches, min_batch=8))
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events() if "HtoD" in e.name)
+
+    assert h2d(card) == h2d(plain) <= 2 * len(batches)  # the packed samples, their table
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = card._dispatch(batches[0], 8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    card._collect(*pending)
+    timer = StageTimer()
+    before = card.stats["pitch_valid_frames"]
+    got = list(card.extract_iter(batches, min_batch=8, timer=timer))
+    assert timer.totals["pitch"] > 0
+    want = list(cpu.extract_iter(batches, min_batch=8))
+    step = np.log1p(PITCH["lag_resolution"])
+    errs, off, frames = [], 0, 0
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.shape == b.shape and a.shape[1] == 83
+            assert np.abs(a[:, :80] - b[:, :80]).max() <= 5e-4
+            d = np.abs(a[:, 80:] - b[:, 80:])
+            agree = d[:, 1] <= step
+            off += int((~agree).sum())
+            frames += agree.size
+            errs.append(d[agree])
+    p99 = np.percentile(np.concatenate(errs), 99, axis=0)
+    assert off <= 1e-3 * frames and (p99 <= [2e-5, 1e-3, 1e-6]).all(), (off, p99)
+    assert card.stats["pitch_valid_frames"] - before == cpu.stats["pitch_valid_frames"] > 0
+
+
 @pytest.mark.cuda
 def test_export_computer_double_runs_b2_with_trained_params():
     """After a training step of the frontend on the card, its exported 'double'

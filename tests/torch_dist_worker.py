@@ -703,6 +703,35 @@ CLI_CFG = {
 }
 
 
+def pitch_signals() -> list:
+    """Two batches of voiced 8 kHz signals for the extractor with pitch:
+    ragged, one too short for a pitch frame (under 376 samples)."""
+    rng = np.random.RandomState(20261019)
+
+    def voiced(n, f0):
+        t = np.arange(n) / PITCH_RATE
+        return np.sin(2 * np.pi * f0 * t) + 0.3 * np.sin(4 * np.pi * f0 * t) + 0.1 * rng.randn(n)
+
+    lens = [(3000, 5200, 300, 4100, 2600), (6100, 1900, 4500)]
+    return [[voiced(n, 90.0 + 7.0 * k) for k, n in enumerate(b)] for b in lens]
+
+
+def extract_pitch(world: int, device: str = "cpu") -> dict:
+    """``ShardedExtractor(pitch={})`` on the mesh over two batches of
+    :func:`pitch_signals` (``min_batch`` 8, so every rank gets rows of
+    batch padding): every row, and this rank's (rank 0's) stats."""
+    import speech_tpu_torch as stt
+    from speech_tpu_torch import parallel as par
+
+    mesh = par.make_mesh(("data",), devices=device)
+    ex = par.ShardedExtractor(stft_computer(stt, device), mesh, pitch={})
+    out = {}
+    for b, rows in enumerate(ex.extract_iter(pitch_signals(), min_batch=8)):
+        out.update(_ragged(f"pitch{b}", rows))
+    out["stats"] = np.array([ex.stats[k] for k in ("rows", "pitch_frames", "pitch_valid_frames")])
+    return out
+
+
 def write_cli_corpus(directory: str) -> str:
     """Eleven random 16-bit wavs of 0.2-1 s at 8 kHz (seeded) in
     ``directory`` and their ``<utt> <path>`` map; returns the map's path."""
@@ -820,6 +849,7 @@ CASES = {
     "relay_feeds": relay_feeds,
     "cli": cli_extract,
     "bench": extract_bench,
+    "extract_pitch": extract_pitch,
 }
 
 
