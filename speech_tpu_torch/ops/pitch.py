@@ -17,7 +17,8 @@ The host tables are numpy copies of the JAX package's.  On the device:
   energies), and two batched products give every integer lag's sums;
 - the Viterbi is two Python loops over the frames (a ``[B, L, L]`` min a
   step forward, a ``[B, L]`` argmin a step back), as the reference's two
-  ``lax.scan`` passes, with each step's costs shifted by their minimum so
+  ``lax.scan`` passes, ended at the longest row's frames where the host
+  holds the lengths, with each step's costs shifted by their minimum so
   that float32 keeps the float64 path; ``torch.argmin`` returns the first
   index of a tie, as ``jnp.argmin`` does, so the path is the
   forward-pointer path;
@@ -84,6 +85,8 @@ def _lag_tables(
         raise ValueError(f"need 0 < min_f0 < max_f0, got {min_f0}/{max_f0}")
     if not 0 < resolution < 1:
         raise ValueError(f"need lag resolution in (0, 1), got {resolution}")
+    if not penalty >= 0:  # a cost on lag changes; _viterbi relies on it
+        raise ValueError(f"need penalty_factor >= 0, got {penalty}")
     min_lag = rate / max_f0
     max_lag = rate / min_f0
     if max_lag < min_lag + 2:
@@ -229,7 +232,7 @@ def _nccf_1d(
     return nccf_pitch, nccf_pov, fvalid
 
 
-def _viterbi(nc, tmat, counts=None):
+def _viterbi(nc, tmat, counts=None, steps=None):
     """The lag path minimising ``sum_t -nc[t, lag_t] + tmat[lag_t-1,
     lag_t]`` for ``(T, ..., L)`` local scores: ``(T, ...)`` int64 indices.
 
@@ -248,14 +251,24 @@ def _viterbi(nc, tmat, counts=None):
     stays at its last frame's lag.  Through a batch's padding frames (zero
     scores) the costs would spread until lags near the best one tie to
     float32's rounding, and the path's last frames could come back one lag
-    off the row's own."""
+    off the row's own.
+
+    ``steps`` (a host number, at least the largest of ``counts``) ends both
+    loops there, and frames ``steps`` to ``T - 1`` repeat each row's lag at
+    ``steps - 1``: the path of the whole loop, bit for bit.  Past its count
+    a row's costs are frozen with a minimum of exactly 0 at their first
+    argmin ``j``, and every off-diagonal transition cost is above 0 (at a
+    penalty of 0 the first-index rule keeps ``j``), so the backtrack over
+    them never leaves ``j``."""
+    T = nc.shape[0]
+    steps = T if steps is None else max(1, min(int(steps), T))
     cost = -nc[0]
     cost = cost - torch.amin(cost, dim=-1, keepdim=True)
     costs = []
     if counts is not None:
-        ahead = torch.arange(nc.shape[0], device=nc.device).reshape((-1,) + (1,) * counts.dim())
+        ahead = torch.arange(steps, device=nc.device).reshape((-1,) + (1,) * counts.dim())
         active = (ahead < counts)[..., None]
-    for t in range(1, nc.shape[0]):
+    for t in range(1, steps):
         costs.append(cost)
         step = torch.amin(cost[..., :, None] + tmat, dim=-2) - nc[t]
         step = step - torch.amin(step, dim=-1, keepdim=True)
@@ -265,7 +278,10 @@ def _viterbi(nc, tmat, counts=None):
     for cost_t in reversed(costs):
         j = torch.argmin(cost_t + tmat[j], dim=-1)
         path.append(j)
-    return torch.stack(path[::-1])
+    path = torch.stack(path[::-1])
+    if steps == T:
+        return path
+    return torch.cat([path, path[-1:].expand((T - steps,) + path.shape[1:])])
 
 
 def _choose_lags(
@@ -276,19 +292,20 @@ def _choose_lags(
     resolution: float,
     soft_min_f0: float,
     counts=None,
+    steps=None,
 ):
     """Viterbi lag choice + parabolic refinement, batched over leading
     axes of ``(..., T, L)`` NCCFs: returns ``(f0, nccf_best)``, ``(..., T)``
     each.  One loop serves the whole batch (each step a ``[..., L, L]``
-    min); ``counts`` ends each row's path at its valid frames
-    (:func:`_viterbi`)."""
+    min); ``counts`` ends each row's path at its valid frames and ``steps``
+    the loops at the longest (:func:`_viterbi`)."""
     _, _, fine, _, trans = tables
     # local cost -nccf_eff: long lags discounted by soft_min_f0 * lag
     # seconds (Kaldi's soft-min-f0), which breaks the exact ties a periodic
     # signal puts at every multiple of its true lag
     tmat = _const(trans, nccf_pitch)
     nccf_eff = nccf_pitch * _const(_soft_discount(fine, rate, soft_min_f0), nccf_pitch)
-    path = _viterbi(torch.movedim(nccf_eff, -2, 0), tmat, counts)
+    path = _viterbi(torch.movedim(nccf_eff, -2, 0), tmat, counts, steps)
     return _refine_lags(torch.movedim(path, 0, -1), nccf_pov, rate, fine, resolution)
 
 
@@ -386,12 +403,15 @@ def pitch_frame_counts(padded_len: int, lengths, rate: float, **kwargs):
     grid = {k: kwargs.get(k, params[k].default) for k in _GRID_KEYS}
     _, up, down, window, shift, tables = _work_geometry(rate, **grid)
     span = _nccf_span(window, tables)
+    return (int(_frame_counts(padded_len, up, down, span, shift)),
+            _frame_counts(lengths, up, down, span, shift))
 
-    def count(n):
-        n = -(-np.asarray(n, np.int64) * up // down)
-        return np.where(n >= span, (n - span) // shift + 1, 0)
 
-    return int(count(padded_len)), count(lengths)
+def _frame_counts(lengths, up: int, down: int, span: int, shift: int):
+    """The tracked frames of signals of ``lengths`` samples (numpy), as
+    :func:`_nccf_1d` counts them after resampling by ``up / down``."""
+    n = -(-np.asarray(lengths, np.int64) * up // down)
+    return np.where(n >= span, (n - span) // shift + 1, 0)
 
 
 def kaldi_pitch(
@@ -426,7 +446,11 @@ def kaldi_pitch(
     ``lengths`` (integers over the leading axes) marks each padded
     signal's valid extent; frames past it come back with ``valid=False``
     and a zero ``nccf``, and each row equals the solo call on its valid
-    extent.  ``ballast_ms`` fixes the ballast's mean square instead of
+    extent.  Lengths in host memory (numpy, a list, a CPU tensor) also end
+    the Viterbi's loops at the longest row's frames (the same track, in
+    fewer steps) and go to the card by one pinned copy that does not wait
+    for it; lengths already on the card leave the loops over every frame.
+    ``ballast_ms`` fixes the ballast's mean square instead of
     measuring it.  A tensor stays on its device; other input goes to
     ``device`` (the GPU by default).
     """
@@ -436,10 +460,20 @@ def kaldi_pitch(
     S = signal.shape[-1]
     batch_shape = signal.shape[:-1]
     ragged = lengths is not None
+    host_len = None
     if not ragged:
         lengths = torch.full(batch_shape, S, dtype=torch.int64, device=signal.device)
     else:
-        lengths = as_tensor(lengths, signal.device).to(signal.device, torch.int64)
+        if isinstance(lengths, torch.Tensor) and lengths.device.type != "cpu":
+            lengths = lengths.to(signal.device, torch.int64)
+        else:
+            host_len = np.ascontiguousarray(np.asarray(lengths, np.int64))
+            lengths = torch.from_numpy(host_len)
+            if signal.device.type == "cuda":
+                # pageable memory would make the copy wait for the card
+                lengths = lengths.pin_memory().to(signal.device, non_blocking=True)
+            else:
+                lengths = lengths.to(signal.device)
         if lengths.shape != batch_shape:
             raise ValueError(
                 f"lengths shape {tuple(lengths.shape)} does not match signal "
@@ -458,6 +492,12 @@ def kaldi_pitch(
         penalty_factor,
         lag_resolution,
     )
+    steps = None
+    if host_len is not None:
+        # the longest row's tracked frames, from the host's lengths: no
+        # row's path moves past them (_viterbi)
+        span = _nccf_span(window, tables)
+        steps = int(_frame_counts(host_len, up, down, span, shift).max(initial=0))
     if (up, down) != (1, 1):
         signal = resample(signal, up, down)
         lengths = -torch.div(-lengths * up, down, rounding_mode="floor")
@@ -482,7 +522,7 @@ def kaldi_pitch(
     nccf_pitch, nccf_pov, valid = (torch.cat(p) for p in zip(*parts))
     f0, nccf = _choose_lags(
         nccf_pitch, nccf_pov, work_rate, tables, float(lag_resolution), float(soft_min_f0),
-        counts=valid.sum(dim=-1) if ragged else None,
+        counts=valid.sum(dim=-1) if ragged else None, steps=steps,
     )
     T = f0.shape[-1]
     return PitchTrack(

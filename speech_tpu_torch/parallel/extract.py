@@ -138,8 +138,9 @@ class ShardedExtractor:
         the computer was handed).  ``samples / kernel_samples`` is the
         share of the computer's input that is not padding.  With
         ``pitch``, also ``pitch_frames`` (rows times the frames the
-        tracker ran over) and ``pitch_valid_frames`` (the rows' tracked
-        frames).
+        tracker ran over), ``pitch_valid_frames`` (the rows' tracked
+        frames) and ``pitch_steps`` (rows times the frames its Viterbi
+        stepped over: the longest row's tracked frames).
     """
 
     def __init__(
@@ -175,7 +176,7 @@ class ShardedExtractor:
         if pitch is not None:
             self._pitch = {"frame_shift_ms": computer.frame_shift_ms, **pitch}
             self._pitch_grid(0, [])  # unknown keys and a bad grid fail here
-            self.stats.update(pitch_frames=0, pitch_valid_frames=0)
+            self.stats.update(pitch_frames=0, pitch_valid_frames=0, pitch_steps=0)
         # batches cross packed and are laid out on the card (a GPU), else
         # padded on the host
         self._packs = computer.device.type == "cuda"
@@ -337,12 +338,12 @@ class ShardedExtractor:
             feats, counts = self._run_block(rows, lengths, max_len, start, lens)
         if self._pitch is not None:
             own = lengths[start: start + per]
-            with stage("pitch"):
-                dev = self._computer.device
-                if lens is None:
-                    lens = torch.from_numpy(own)
-                feats = self._with_pitch(feats, rows.to(dev), lens.to(dev))
             frames, valid = self._pitch_grid(max_len, own)
+            with stage("pitch"):
+                # host lengths: the tracker's Viterbi stops at the longest
+                # row's frames, known here without a read from the card
+                feats = self._with_pitch(feats, rows.to(self._computer.device),
+                                         torch.from_numpy(own))
         samples = int(lengths[start: max(start, min(start + per, n))].sum())
         with self._stats_lock:
             st = self.stats
@@ -353,6 +354,7 @@ class ShardedExtractor:
             if self._pitch is not None:
                 st["pitch_frames"] += per * frames
                 st["pitch_valid_frames"] += int(valid.sum())
+                st["pitch_steps"] += per * int(valid.max(initial=0))
         return (*self._wrap(feats, counts), n)
 
     def _pitch_grid(self, max_len: int, lengths):
@@ -367,8 +369,10 @@ class ShardedExtractor:
     def _with_pitch(self, feats, rows, lens):
         """``(rows, frames, num_coeffs)`` ``feats`` with the pitch columns
         of the device ``rows`` (compact integers upcast once) and their
-        ``lens`` joined on: rows past a track repeat its last frame, and a
-        row with no track (or rows too short for the tracker's first
+        ``lens`` (host lengths from :meth:`_dispatch`, which end the
+        tracker's Viterbi at the longest row; device lengths run it over
+        every frame) joined on: rows past a track repeat its last frame,
+        and a row with no track (or rows too short for the tracker's first
         frame) gets zeros.  Queued on the device, inside a profiler range
         ``"extract.pitch"``; nothing waits for the card."""
         from ..ops.pitch import pitch_feats

@@ -170,3 +170,58 @@ def test_a_mesh_of_two_ranks_tracks_each_block(tmp_path):
         valid += int(v.sum())
     assert mesh["stats"].tolist() == [8, frames, valid]
     assert valid > 0
+
+
+
+RAGGED = [(24000, 9000, 700, 16000), (12000, 400, 20000)]
+
+
+def _viterbi_spy(monkeypatch, whole=False):
+    """Record the ``(frames, steps)`` each call of the tracker's Viterbi is
+    asked for; with ``whole``, run it over every frame, as lengths on the
+    card do."""
+    from speech_tpu_torch.ops import pitch as TP
+
+    viterbi = TP._viterbi
+    asked = []
+
+    def spy(nc, tmat, counts=None, steps=None):
+        asked.append((nc.shape[0], steps))
+        return viterbi(nc, tmat, counts, None if whole else steps)
+
+    monkeypatch.setattr(TP, "_viterbi", spy)
+    return asked
+
+
+def test_bounded_tracker_gives_the_unbounded_columns(monkeypatch):
+    """``extract_iter`` hands the tracker host lengths, which end its
+    Viterbi at each batch's longest row, well short of the bucket here; the
+    rows equal, bit for bit, those of the tracker over every frame."""
+    comp = _computer()
+    batches = _batches(np.int16, RAGGED)
+    got = list(tpar.ShardedExtractor(comp, pitch=PITCH).extract_iter(batches, min_batch=6))
+    asked = _viterbi_spy(monkeypatch, whole=True)
+    want = list(tpar.ShardedExtractor(comp, pitch=PITCH).extract_iter(batches, min_batch=6))
+    assert len(asked) == len(batches)
+    for (T, steps), g, w, sigs in zip(asked, got, want, batches):
+        assert steps < 0.9 * T
+        assert len(g) == len(w) == len(sigs)
+        for a, b in zip(g, w):
+            assert a.shape == b.shape and np.array_equal(a, b)
+
+
+def test_pitch_steps_count_the_rows_times_the_longest_row(monkeypatch):
+    """``stats["pitch_steps"]``: the rows times the largest tracked count,
+    batch by batch, the bound the tracker was given."""
+    comp = _computer()
+    ex = tpar.ShardedExtractor(comp, pitch=PITCH)
+    asked = _viterbi_spy(monkeypatch)
+    for sigs in _batches(np.int16, RAGGED):
+        before = dict(ex.stats)
+        ex.extract(sigs, min_batch=6)
+        lens = [s.size for s in sigs] + [comp.frame_length] * (6 - len(sigs))
+        _, valid = pitch_frame_counts(ex.bucket_len(max(lens)), lens, RATE,
+                                      frame_shift_ms=10, **PITCH)
+        assert ex.stats["pitch_steps"] - before["pitch_steps"] == 6 * valid.max() == 6 * asked[-1][1]
+        assert (ex.stats["pitch_valid_frames"] - before["pitch_valid_frames"]
+                == valid.sum() > 0)

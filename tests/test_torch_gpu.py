@@ -992,8 +992,8 @@ def test_extract_iter_pitch_on_card_matches_cpu():
     and near an NCCF of 1 the POV's slope is a hundred times its slope at
     0.5 (the CPU's float32 reads 4.4e-6 here).  The
     dispatch queues no host synchronisation, a batch copies its samples to
-    the card once, as without pitch, and the timer has a ``"pitch"``
-    stage."""
+    the card once, as without pitch, and the tracker's host lengths once
+    (they bound its Viterbi), and the timer has a ``"pitch"`` stage."""
     from speech_tpu_torch import parallel as par
     from speech_tpu_torch.profiling import StageTimer
 
@@ -1020,7 +1020,8 @@ def test_extract_iter_pitch_on_card_matches_cpu():
             torch.cuda.synchronize()
         return sum(1 for e in prof.events() if "HtoD" in e.name)
 
-    assert h2d(card) == h2d(plain) <= 2 * len(batches)  # the packed samples, their table
+    # the packed samples and their table; with pitch, the tracker's lengths
+    assert h2d(card) == h2d(plain) + len(batches) <= 3 * len(batches)
     torch.cuda.set_sync_debug_mode("error")
     try:
         pending = card._dispatch(batches[0], 8)
@@ -1046,6 +1047,71 @@ def test_extract_iter_pitch_on_card_matches_cpu():
     p99 = np.percentile(np.concatenate(errs), 99, axis=0)
     assert off <= 1e-3 * frames and (p99 <= [2e-5, 1e-3, 1e-6]).all(), (off, p99)
     assert card.stats["pitch_valid_frames"] - before == cpu.stats["pitch_valid_frames"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:Synchronization debug mode is a prototype")
+@pytest.mark.filterwarnings("ignore:Warning. Profiler clears events")
+def test_pitch_viterbi_stops_at_the_longest_row_on_card():
+    """At the pitch cell's shapes (64 rows of 2-20 s of int16 PCM in the
+    524,288-sample bucket, 418 lags): host lengths end the Viterbi at the
+    batch's longest tracked row and give the track of lengths on the card
+    (the loops over every frame) bit for bit; the extractor's
+    ``"extract.pitch"`` range holds at most 9 kernels a step past the first
+    plus 400; and after one warm-up batch ``_with_pitch`` queues no host
+    synchronisation."""
+    from torch.autograd import DeviceType
+
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.ops import pitch as TP
+
+    dev = _device()
+    rng = np.random.RandomState(45)
+    lens = rng.randint(2 * 16000, 20 * 16000, size=64).astype(np.int64)
+    comp = STFTFrameComputer({**BANK, "num_filts": 80}, frame_length_ms=25,
+                             frame_shift_ms=10, precision="highest", device=dev)
+    ex = par.ShardedExtractor(comp, pitch=PITCH)
+    max_len = ex.bucket_len(int(lens.max()))
+    assert max_len == 524288
+    padded = np.zeros((lens.size, max_len), np.int16)
+    for i, n in enumerate(lens):
+        padded[i, :n] = _voiced(rng, int(n))
+    rows = torch.tensor(padded, device=dev)
+    T, counts = TP.pitch_frame_counts(max_len, lens, 16000, **PITCH)
+    bound = int(counts.max())
+    assert bound < 0.7 * T
+
+    x = rows.to(torch.float32)
+    bounded = TP.kaldi_pitch(x, 16000, lengths=lens, **PITCH)
+    whole = TP.kaldi_pitch(x, 16000, lengths=torch.tensor(lens, device=dev), **PITCH)
+    for name, a, b in zip(TP.PitchTrack._fields, bounded, whole):
+        assert a.shape == b.shape == (lens.size, T) and torch.equal(a, b), name
+    del x, bounded, whole
+
+    feats = torch.zeros((lens.size, (max_len - comp.frame_length) // 160 + 1, 80), device=dev)
+    host = torch.from_numpy(lens)
+    want = ex._with_pitch(feats, rows, torch.tensor(lens, device=dev))
+    ex._with_pitch(feats, rows, host)  # the warm-up batch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ex._with_pitch(feats, rows, host)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ex._with_pitch(feats, rows, host)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = [e.time_range for e in on_card if e.name == "extract.pitch"]
+    assert len(ranges) == 1
+    kernels = [e for e in on_card if not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("Memcpy", "Memset"))
+               and ranges[0].start <= e.time_range.start
+               and e.time_range.end <= ranges[0].end]
+    assert 9 * (bound - 1) < len(kernels) <= 9 * (bound - 1) + 400, (len(kernels), bound)
 
 
 @pytest.mark.cuda

@@ -181,3 +181,93 @@ def test_validation_errors(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TP.kaldi_pitch(np.zeros(8000), RATE)
+
+
+# (frames, each row's count, scores rounded to this step or 0, transition
+# penalty): the bound is the largest count
+VITERBI_BOUNDS = {
+    "ragged": (40, [30, 17, 3, 25, 29], 0.0, 0.1),
+    "count_0_and_1": (30, [0, 1, 12, 5], 0.0, 0.1),
+    "bound_is_T": (30, [30, 8, 19], 0.0, 0.1),
+    "one_frame": (1, [1, 0], 0.0, 0.1),
+    "no_row_tracked": (12, [0, 0, 0], 0.0, 0.1),
+    "ties": (35, [20, 7, 13, 20], 0.25, 0.1),
+    "no_penalty": (25, [18, 4, 11], 0.25, 0.0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(VITERBI_BOUNDS))
+def test_viterbi_bound_gives_the_whole_loop(case, dtype):
+    """``_viterbi`` ended at the largest count gives the path of the loop
+    over every frame, bit for bit: past its count a row's frozen costs keep
+    its backtrack on one lag."""
+    T, counts, grain, penalty = VITERBI_BOUNDS[case]
+    tables = TP._lag_tables(4000.0, 50.0, 400.0, penalty, 0.02)
+    L = len(tables[2])
+    rng = np.random.RandomState(len(case))
+    nc = rng.uniform(-0.3, 1.0, size=(T, len(counts), L))
+    if grain:
+        nc = np.round(nc / grain) * grain  # many exact ties
+    counts = torch.tensor(counts)
+    nc = torch.tensor(nc, dtype=dtype)
+    nc = torch.where(torch.arange(T)[:, None, None] < counts[:, None], nc, 0.0)
+    tmat = torch.tensor(tables[4], dtype=dtype)
+    bound = int(counts.max())
+    want = TP._viterbi(nc, tmat, counts)
+    got = TP._viterbi(nc, tmat, counts, bound)
+    assert got.shape == want.shape == (T, len(counts))
+    assert torch.equal(got, want)
+    if 0 < bound < T:  # the frames past the bound hold the lag at bound - 1
+        assert torch.equal(got[bound:], got[bound - 1].expand(T - bound, -1))
+
+
+def _viterbi_spy(monkeypatch, whole=False):
+    """Record the ``(frames, steps)`` each ``_viterbi`` call is asked for;
+    with ``whole``, run it over every frame, as lengths on the card do."""
+    viterbi = TP._viterbi
+    asked = []
+
+    def spy(nc, tmat, counts=None, steps=None):
+        asked.append((nc.shape[0], steps))
+        return viterbi(nc, tmat, counts, None if whole else steps)
+
+    monkeypatch.setattr(TP, "_viterbi", spy)
+    return asked
+
+
+@pytest.mark.parametrize("form", ["numpy", "list", "cpu_tensor"])
+def test_host_lengths_track_equals_the_unbounded_one(monkeypatch, form):
+    """Host lengths end the Viterbi at the longest row's frames, well short
+    of the padded length here, and give the whole track of the loop over
+    every frame (on the CPU every tensor is in host memory, so that loop is
+    had by dropping the bound), bit for bit, in float32."""
+    sig = _harmonic(140.0, seconds=2.0).astype(np.float32)
+    lens = [17000, 9000, 600, 12500]
+    batch = np.stack([np.pad(_harmonic(100.0 + 40 * i, seconds=2.0, seed=i)[:n],
+                             (0, sig.size - n)) for i, n in enumerate(lens)]).astype(np.float32)
+    lengths = {"numpy": np.array(lens), "list": lens, "cpu_tensor": torch.tensor(lens)}[form]
+    kw = dict(lag_resolution=0.005, device="cpu")
+    got = TP.kaldi_pitch(batch, RATE, lengths=lengths, **kw)
+    asked = _viterbi_spy(monkeypatch, whole=True)
+    want = TP.kaldi_pitch(batch, RATE, lengths=lengths, **kw)
+    T, _ = asked[0]
+    _, counts = TP.pitch_frame_counts(sig.size, lens, RATE, lag_resolution=0.005)
+    assert counts.max() < 0.6 * T and (got.valid.sum(-1).numpy() == counts).all()
+    for name, a, b in zip(TP.PitchTrack._fields, got, want):
+        assert a.shape == b.shape == (len(lens), T) and torch.equal(a, b), name
+
+
+def test_only_host_lengths_bound_the_loops(monkeypatch):
+    """No lengths run the loops over every frame; host lengths bound them at
+    the longest row's frames (lengths on the card:
+    ``tests/test_torch_gpu.py``).  A negative penalty, which could move a
+    frozen row's backtrack, is refused."""
+    asked = _viterbi_spy(monkeypatch)
+    x = np.stack([_harmonic(150.0, seconds=0.5), _harmonic(200.0, seconds=0.5)])
+    TP.kaldi_pitch(x, RATE, device="cpu")
+    TP.kaldi_pitch(x, RATE, lengths=np.array([8000, 5000]), device="cpu")
+    _, (n,) = TP.pitch_frame_counts(8000, [8000], RATE)
+    assert asked == [(asked[0][0], None), (asked[0][0], n)]
+    with pytest.raises(ValueError, match="penalty_factor"):
+        TP.kaldi_pitch(x, RATE, lengths=np.array([8000, 5000]), device="cpu", penalty_factor=-0.1)
