@@ -233,114 +233,69 @@ class _VadTrimmer:
         return feats[mask]
 
 
-class _PitchAppender:
-    """Appends Kaldi-style pitch columns to each utterance's features.
+def _pitch_rows(computer, pitch, signal, raw):
+    """One utterance's ``raw`` features with its pitch columns pasted on
+    (:func:`_paste_pitch`), as ``ShardedExtractor(pitch=)`` gives its row:
+    :func:`~speech_tpu_torch.ops.pitch.pitch_feats` of ``signal`` alone on
+    the computer's device (``frame_shift_ms`` the computer's unless
+    ``pitch`` sets it); zeros where it is too short for one frame."""
+    from .ops.pitch import pitch_feats, pitch_frame_counts
 
-    ``--pitch CONFIG`` takes keyword arguments for
-    :func:`speech_tpu_torch.ops.pitch.pitch_feats` (``{}`` for defaults;
-    ``frame_shift_ms`` defaults to the computer's so the track shares
-    its frame grid).  Signals batch to the JAX package's power-of-two
-    buckets (so rows match its CLI) and run on the computer's device; the
-    three columns (POV, normalized log pitch, delta log pitch) are appended
-    AFTER the ``--postprocess`` chain, row-aligned to the feature frame
-    count -- the pitch track is a few frames shorter (its NCCF window spans
-    ``frame_length + max_lag`` samples), so trailing rows repeat the last
-    tracked frame, matching Kaldi's paste-feats + online-pitch tail
-    behavior.  Each batch's pitch reads back synchronously, so ``--pitch``
-    trades some of the extractor's dispatch/compute overlap for the extra
-    columns.
+    kwargs = {"frame_shift_ms": computer.frame_shift_ms, **pitch}
+    rate = computer.bank.sampling_rate
+    signal = np.asarray(signal)
+    p3 = np.zeros((0, 3))
+    if pitch_frame_counts(signal.shape[0], [], rate, **kwargs)[0]:
+        x = torch.as_tensor(signal).to(computer.device, computer._dtype)
+        p3 = pitch_feats(x, rate, **kwargs).cpu().numpy()
+    return _paste_pitch(raw, p3)
+
+
+def _postprocess_rows(rows, pitch, postprocessors, warned):
+    """``(raw, feats)`` of one utterance's computer ``rows``, whose last 3
+    columns are the pitch where ``pitch`` is set: ``raw`` without them, and
+    ``feats`` the --postprocess chain's output with them pasted back on
+    (:func:`_paste_pitch`, ``warned`` its run's list)."""
+    raw, p3 = (rows, None) if pitch is None else (rows[:, :-3], rows[:, -3:])
+    feats = raw
+    for postprocessor in postprocessors:
+        feats = postprocessor.apply(feats, axis=-1)
+    if p3 is not None:
+        feats = np.asarray(feats, np.float64)
+        feats = _paste_pitch(feats, p3, raw.shape[0], warned)
+    return raw, feats
+
+
+def _paste_pitch(feats, p3, pre_rows=None, warned=None):
+    """Concatenate Kaldi-style pitch's ``(frames, 3)`` columns ``p3`` (POV,
+    normalized log pitch, delta log pitch) onto ``(T, F)`` feats, aligned
+    to T rows: the track is a few frames shorter than the features (its
+    NCCF window spans ``frame_length + max_lag`` samples), so rows past it
+    repeat its last frame, as Kaldi's paste-feats over online pitch does,
+    and no track gives zeros.
+
+    ``pre_rows`` is the frame count BEFORE the --postprocess chain; a
+    frame-count-changing postprocessor (e.g. "stack") moves the features
+    off the pitch track's frame grid, which row-for-row pasting cannot
+    follow -- warn rather than misalign silently, once a run: ``warned``
+    is a list the run's calls share, empty until the warning is given.
     """
-
-    def __init__(self, computer, cfg):
-        self.kwargs = dict(cfg)
-        self.kwargs.setdefault("frame_shift_ms", computer.frame_shift_ms)
-        self.rate = computer.bank.sampling_rate
-        self.device = computer.device
-        self.mesh = None  # set by the CLI alongside the extractor's
-        self.min_batch = 0  # set by the CLI to its batch size so the
-        # trailing partial batch keeps the full batches' shape
-        self._grid_warned = False
-
-    @staticmethod
-    def bucket_len(n):
-        """The padded signal length a batch with max length ``n`` uses
-        (pow2 with a floor that keeps short batches above the NCCF
-        span)."""
-        return max(1 << max(int(n) - 1, 0).bit_length(), 8192)
-
-    def batch(self, signals):
-        """1-D signal arrays -> per-utterance ``(valid_t, 3)`` float64."""
-        from .ops.pitch import pitch_feats
-        from .parallel import sharded_pitch_feats
-        from .parallel.mesh import axis_size
-
-        B = len(signals)
-        lengths = np.array([s.shape[0] for s in signals], np.int32)
-        L = self.bucket_len(int(lengths.max()))
-        Bp = 1 << max(max(B, self.min_batch) - 1, 0).bit_length()
-        dtype = (
-            np.int16
-            if all(s.dtype == np.int16 for s in signals)
-            else np.float32
+    T = feats.shape[0]
+    if warned is not None and not warned and pre_rows not in (None, T):
+        warned.append(True)
+        logger.warning(
+            "--pitch pastes row-for-row, but a postprocessor changed "
+            "the frame count (%d -> %d); the pitch columns stay on "
+            "the computer's original frame grid",
+            pre_rows,
+            T,
         )
-        buf = np.zeros((Bp, L), dtype)
-        lens = np.zeros((Bp,), np.int64)
-        for i, s in enumerate(signals):
-            buf[i, : s.shape[0]] = s
-            lens[i] = s.shape[0]
-        mesh = self.mesh
-        if mesh is not None:
-            # the sharded path splits over the mesh's data axis (not the
-            # total device count -- they differ on multi-axis meshes)
-            if "data" not in (mesh.mesh_dim_names or ()) or Bp % axis_size(
-                mesh, "data"
-            ):
-                mesh = None  # every process runs the whole batch
-        if mesh is not None:
-            p3, valid = sharded_pitch_feats(
-                buf, self.rate, lens, mesh, **self.kwargs
-            )
-            p3, valid = p3.full_tensor(), valid.full_tensor()
-        else:
-            p3, valid = pitch_feats(
-                torch.from_numpy(buf).to(self.device),
-                self.rate,
-                lengths=torch.from_numpy(lens).to(self.device),
-                return_valid=True,
-                **self.kwargs,
-            )
-        p3 = p3.cpu().numpy().astype(np.float64)
-        valid = valid.cpu().numpy()
-        return [p3[i, : int(valid[i])] for i in range(B)]
-
-    def one(self, signal):
-        return self.batch([np.asarray(signal)])[0]
-
-    def append(self, feats, p3, pre_rows=None):
-        """Concatenate ``p3`` onto ``(T, F)`` feats, aligned to T rows.
-
-        ``pre_rows`` is the frame count BEFORE the --postprocess chain;
-        a frame-count-changing postprocessor (e.g. "stack") moves the
-        features off the pitch track's frame grid, which row-for-row
-        pasting cannot follow — warn (once) rather than misalign
-        silently.
-        """
-        T = feats.shape[0]
-        if pre_rows is not None and pre_rows != T and not self._grid_warned:
-            self._grid_warned = True
-            logger.warning(
-                "--pitch pastes row-for-row, but a postprocessor changed "
-                "the frame count (%d -> %d); the pitch columns stay on "
-                "the computer's original frame grid",
-                pre_rows,
-                T,
-            )
-        out = np.zeros((T, p3.shape[-1]), feats.dtype)
-        v = min(p3.shape[0], T)
-        out[:v] = p3[:v]
-        if 0 < v < T:
-            out[v:] = p3[v - 1]
-        return np.concatenate([feats, out], axis=-1)
+    out = np.zeros((T, p3.shape[-1]), feats.dtype)
+    v = min(p3.shape[0], T)
+    out[:v] = p3[:v]
+    if 0 < v < T:
+        out[v:] = p3[v - 1]
+    return np.concatenate([feats, out], axis=-1)
 
 
 def _signals_to_torch_feat_dir_parse_args(args):
@@ -794,8 +749,8 @@ def _signals_to_torch_feat_dir(options) -> int:
             return 1
         if target != options.resample_from:
             resample_rates = (target, options.resample_from)
-    pitch = None
-    if options.pitch is not None:
+    pitch = options.pitch
+    if pitch is not None:
         if computer is None:
             print(
                 "--pitch requires a computer config (the pitch track "
@@ -810,7 +765,6 @@ def _signals_to_torch_feat_dir(options) -> int:
                 file=sys.stderr,
             )
             return 1
-        pitch = _PitchAppender(computer, options.pitch)
     vad_trim = None
     if options.vad_trim is not None:
         if computer is None:
@@ -866,9 +820,14 @@ def _signals_to_torch_feat_dir(options) -> int:
             options.manifest.write(utt_id + "\n")
             options.manifest.flush()
 
-    def postprocess(feats):
-        for p in postprocessors:
-            feats = p.apply(feats, axis=-1)
+    warned = []  # the pitch paste's one warning
+
+    def finish(rows, utt_id):
+        # the post-processed features of one utterance's rows (with no
+        # computer: its samples as one column)
+        raw, feats = _postprocess_rows(rows, pitch, postprocessors, warned)
+        if vad_trim is not None:
+            feats = vad_trim(np.asarray(raw), np.asarray(feats), utt_id)
         return feats
 
     use_batched = (
@@ -886,10 +845,8 @@ def _signals_to_torch_feat_dir(options) -> int:
             mesh,
             bucket="fine" if options.fine_buckets else "pow2",
             aot_dir=_make_aot(options),
+            pitch=pitch,
         )
-        if pitch is not None:
-            pitch.mesh = mesh
-            pitch.min_batch = options.batch_size
     if options.precompile:
         if extractor is None:
             print(
@@ -1011,26 +968,6 @@ def _signals_to_torch_feat_dir(options) -> int:
             dtypes=sorted(dtypes, key=str),
             progress=lambda msg: print(msg, file=sys.stderr),
         )
-        if pitch is not None:
-            # the --pitch appender's own bucket grid (pow2 lengths with
-            # its 8192 floor, pow2 batch), as the JAX package walks it
-            for dtype in sorted(dtypes, key=str):
-                seen = set()
-                for m in lengths:
-                    L = pitch.bucket_len(m)
-                    if L in seen:
-                        continue
-                    seen.add(L)
-                    n += 1
-                    print(
-                        f"precompile pitch bucket={L} "
-                        f"batch={options.batch_size} "
-                        f"dtype={np.dtype(dtype).name}",
-                        file=sys.stderr,
-                    )
-                    pitch.batch(
-                        [np.zeros(L, dtype)] * options.batch_size
-                    )
         s = extractor.aot.stats
         print(
             f"precompiled {n} program grid points into {options.aot_dir} "
@@ -1045,7 +982,7 @@ def _signals_to_torch_feat_dir(options) -> int:
         with trace(options.profile or None):
             if computer is None:
                 for utt_id, signal in loader():
-                    save_timed(utt_id, postprocess(signal[:, None]))
+                    save_timed(utt_id, finish(signal[:, None], utt_id))
             elif extractor is not None:
                 # extract_iter keeps one dispatched batch in flight so
                 # host read/pad of batch i+1 overlaps device compute of
@@ -1055,7 +992,6 @@ def _signals_to_torch_feat_dir(options) -> int:
                 bsz = options.batch_size
                 window = max(1, options.sort_window) * bsz
                 batch_utts = []  # utt lists, in dispatch order
-                batch_sigs = []  # per-batch signals, kept iff --pitch
 
                 def batch_stream():
                     wutts, wsigs = [], []
@@ -1067,8 +1003,6 @@ def _signals_to_torch_feat_dir(options) -> int:
                         for s in range(0, len(order), bsz):
                             idxs = order[s : s + bsz]
                             batch_utts.append([wutts[i] for i in idxs])
-                            if pitch is not None:
-                                batch_sigs.append([wsigs[i] for i in idxs])
                             yield [wsigs[i] for i in idxs]
                         wutts.clear()
                         wsigs.clear()
@@ -1087,38 +1021,16 @@ def _signals_to_torch_feat_dir(options) -> int:
                         batch_stream(), min_batch=bsz, timer=timer
                     )
                 ):
-                    p3s = None
-                    if pitch is not None:
-                        with timer.stage("pitch"):
-                            p3s = pitch.batch(batch_sigs[done])
-                        batch_sigs[done] = None  # keep memory O(batch)
-                    for j, (utt_id, feats) in enumerate(
-                        zip(batch_utts[done], batch_feats)
-                    ):
-                        raw = np.asarray(feats, np.float64)
-                        feats = postprocess(raw)
-                        if p3s is not None:
-                            feats = pitch.append(
-                                feats, p3s[j], pre_rows=raw.shape[0]
-                            )
-                        if vad_trim is not None:
-                            feats = vad_trim(raw, np.asarray(feats), utt_id)
-                        save_timed(utt_id, feats)
+                    for utt_id, feats in zip(batch_utts[done], batch_feats):
+                        feats = np.asarray(feats, np.float64)
+                        save_timed(utt_id, finish(feats, utt_id))
             else:
                 for utt_id, signal in loader():
                     with timer.stage("compute"):
-                        raw = computer.compute_full(signal)
-                        feats = postprocess(raw)
+                        rows = computer.compute_full(signal)
                         if pitch is not None:
-                            feats = pitch.append(
-                                np.asarray(feats, np.float64),
-                                pitch.one(signal),
-                                pre_rows=raw.shape[0],
-                            )
-                        if vad_trim is not None:
-                            feats = vad_trim(
-                                np.asarray(raw), np.asarray(feats), utt_id
-                            )
+                            rows = _pitch_rows(computer, pitch, signal, rows)
+                        feats = finish(rows, utt_id)
                     save_timed(utt_id, feats)
     finally:
         if pool is not None:
@@ -1314,16 +1226,14 @@ def compute_feats_from_kaldi_tables(args: Optional[Sequence[str]] = None) -> int
         except (ValueError, OSError) as e:
             logger.error(str(e))
             return 1
-    pitch = None
-    if options.pitch is not None:
-        if not isinstance(options.pitch, dict):
-            print(
-                f"--pitch expects a dict of pitch_feats options, got "
-                f"{type(options.pitch).__name__}",
-                file=sys.stderr,
-            )
-            return 1
-        pitch = _PitchAppender(computer, options.pitch)
+    pitch = options.pitch
+    if pitch is not None and not isinstance(pitch, dict):
+        print(
+            f"--pitch expects a dict of pitch_feats options, got "
+            f"{type(pitch).__name__}",
+            file=sys.stderr,
+        )
+        return 1
     vad_trim = None
     if options.vad_trim is not None:
         if not isinstance(options.vad_trim, dict):
@@ -1572,15 +1482,10 @@ def compute_feats_from_kaldi_tables(args: Optional[Sequence[str]] = None) -> int
                 buff = _compact_pcm(buff)
             yield utt_id, buff
 
-    def emit(utt_id, feats, p3=None):
-        pre_rows = feats.shape[0]
-        raw = feats
-        for postprocessor in postprocessors:
-            feats = postprocessor.apply(feats, axis=-1)
-        if p3 is not None:
-            feats = pitch.append(
-                np.asarray(feats, np.float64), p3, pre_rows=pre_rows
-            )
+    warned = []  # the pitch paste's one warning
+
+    def emit(utt_id, rows):
+        raw, feats = _postprocess_rows(rows, pitch, postprocessors, warned)
         if vad_trim is not None:
             # per-utterance problems warn and skip, reference/Kaldi style
             try:
@@ -1637,10 +1542,8 @@ def compute_feats_from_kaldi_tables(args: Optional[Sequence[str]] = None) -> int
             mesh,
             bucket="fine" if options.fine_buckets else "pow2",
             aot_dir=_make_aot(options),
+            pitch=pitch,
         )
-        if pitch is not None:
-            pitch.mesh = mesh
-            pitch.min_batch = options.batch_size
         bsz = options.batch_size
         window = max(1, options.sort_window) * bsz
 
@@ -1668,42 +1571,29 @@ def compute_feats_from_kaldi_tables(args: Optional[Sequence[str]] = None) -> int
                 groups = [
                     order[s : s + bsz] for s in range(0, len(order), bsz)
                 ]
-                pending[widx] = [
-                    utts,
-                    [None] * len(sigs),
-                    len(groups),
-                    [None] * len(sigs) if pitch is not None else None,
-                ]
+                pending[widx] = [utts, [None] * len(sigs), len(groups)]
                 for g in groups:
-                    # the signals ride along iff --pitch (still O(window))
-                    meta.append(
-                        (widx, g, [sigs[i] for i in g] if pitch else None)
-                    )
+                    meta.append((widx, g))
                     yield [sigs[i] for i in g]
 
         for done, feats_list in enumerate(
             extractor.extract_iter(batch_stream(), min_batch=bsz)
         ):
-            widx, positions, sigs_b = meta[done]
-            meta[done] = None  # keep held signals O(window)
+            widx, positions = meta[done]
             w = pending[widx]
-            p3s = pitch.batch(sigs_b) if pitch is not None else None
-            for k, (pos, feats) in enumerate(zip(positions, feats_list)):
+            for pos, feats in zip(positions, feats_list):
                 w[1][pos] = np.asarray(feats, np.float64)
-                if p3s is not None:
-                    w[3][pos] = p3s[k]
             w[2] -= 1
             if w[2] == 0:
-                for pos, (utt_id, feats) in enumerate(zip(w[0], w[1])):
-                    emit(utt_id, feats, None if w[3] is None else w[3][pos])
+                for utt_id, feats in zip(w[0], w[1]):
+                    emit(utt_id, feats)
                 del pending[widx]
     else:
         for utt_id, buff in valid_signals():
-            emit(
-                utt_id,
-                computer.compute_full(buff),
-                pitch.one(buff) if pitch is not None else None,
-            )
+            rows = computer.compute_full(buff)
+            if pitch is not None:
+                rows = _pitch_rows(computer, pitch, buff, rows)
+            emit(utt_id, rows)
     logger.info(
         "Done %d out of %d utterances", counts["success"], counts["utts"]
     )

@@ -481,6 +481,90 @@ def test_signals_to_torch_feat_dir_pitch(wav_dir, tmp_path):
             np.testing.assert_allclose(got[f][:, 10:], want[f][:, 10:], rtol=0, atol=TOL_PITCH)
 
 
+STACK = json.dumps([{"name": "stack", "num_vectors": 3}])
+PASTE_WARNING = "--pitch pastes row-for-row"
+
+
+def _short_map(wav_dir, tmp_path):
+    """The first three utterances and three shorter than one tracker frame
+    (375 samples at 8 kHz): in batches of 2 the two shortest share a
+    bucket the tracker never runs on, the third rides beside a tracked
+    row."""
+    rng = np.random.RandomState(51)
+    out = str(tmp_path / "short_map.txt")
+    with open(wav_dir) as f, open(out, "w") as mf:
+        mf.writelines(f.readlines()[:3])
+        for n in (210, 240, 300):
+            path = str(tmp_path / f"short{n}.wav")
+            write_wav(path, (rng.randn(n) * 1000).astype(np.int16), 8000)
+            mf.write(f"short{n} {path}\n")
+    return out
+
+
+@pytest.mark.parametrize("case", ["short", "stack"])
+def test_signals_to_torch_feat_dir_pitch_cases(case, wav_dir, tmp_path, caplog):
+    """--pitch on the port's batched and host paths against the JAX CLI:
+    utterances too short to track get zero columns; after a stack the
+    columns are pasted to the stacked rows, with one warning a run."""
+    if case == "short":
+        small, extra, width = _short_map(wav_dir, tmp_path), [], 13
+    else:
+        small, extra, width = head_map(wav_dir, tmp_path, 4), ["--postprocess", STACK], 33
+    jax_out = str(tmp_path / "pitch_jax")
+    assert jcli.signals_to_torch_feat_dir(
+        [small, json.dumps(COMPUTER), jax_out, "--pitch", "{}", "--batch-size", "0",
+         *extra]) == 0
+    want = load_dir(jax_out)
+    cfg = json.dumps(_config(tcli, COMPUTER))
+    for batch in ("2", "0"):
+        caplog.clear()
+        out = str(tmp_path / f"pitch_{batch}")
+        with caplog.at_level("WARNING", logger=tcli.logger.name):
+            assert tcli.signals_to_torch_feat_dir(
+                [small, cfg, out, "--pitch", "{}", "--batch-size", batch, *extra]) == 0
+        warned = [r for r in caplog.records
+                  if r.name == tcli.logger.name and PASTE_WARNING in r.getMessage()]
+        assert len(warned) == (case == "stack"), batch
+        got = load_dir(out)
+        assert list(got) == list(want) and len(got) == (6 if case == "short" else 4)
+        for f in want:
+            assert got[f].shape == want[f].shape and got[f].shape[1] == width, f
+            if f.startswith("short"):
+                assert got[f].shape[0] and not got[f][:, -3:].any(), f
+            np.testing.assert_allclose(got[f][:, :-3], want[f][:, :-3], rtol=0, atol=TOL)
+            np.testing.assert_allclose(got[f][:, -3:], want[f][:, -3:], rtol=0,
+                                       atol=TOL_PITCH)
+
+
+def test_batched_pitch_runs_in_the_extractor(wav_dir, tmp_path, monkeypatch):
+    """A batched --pitch run tracks each batch once, from
+    ``ShardedExtractor``'s own pitch step, and never through
+    ``sharded_pitch_feats``."""
+    import speech_tpu_torch.parallel as tpar
+    import speech_tpu_torch.parallel.extract as textract
+    from speech_tpu_torch.ops import pitch as tpitch
+
+    callers = []
+    real = tpitch.pitch_feats
+
+    def spy(*args, **kwargs):
+        frame = sys._getframe(1)
+        callers.append((os.path.basename(frame.f_code.co_filename), frame.f_code.co_name))
+        return real(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("sharded_pitch_feats called")
+
+    monkeypatch.setattr(tpitch, "pitch_feats", spy)
+    monkeypatch.setattr(tpar, "sharded_pitch_feats", refuse)
+    monkeypatch.setattr(textract, "sharded_pitch_feats", refuse)
+    small = head_map(wav_dir, tmp_path, 4)
+    cfg = json.dumps(_config(tcli, COMPUTER))
+    assert tcli.signals_to_torch_feat_dir(
+        [small, cfg, str(tmp_path / "spy"), "--pitch", "{}", "--batch-size", "2"]) == 0
+    assert callers == [("extract.py", "_with_pitch")] * 2
+
+
 def test_pitch_requires_computer(wav_dir, tmp_path):
     runs = both("signals_to_torch_feat_dir", [wav_dir, OUT, "--pitch", "{}"], tmp_path, "p1")
     assert runs["torch"][0] == runs["jax"][0] == 1

@@ -1,6 +1,6 @@
 """``ShardedExtractor(pitch=...)`` on the CPU: each row is the computer's
 features of the utterance alone with ``pitch_feats`` of the utterance
-alone pasted on by the CLIs' ``--pitch`` rule (``_PitchAppender.append``:
+alone pasted on by the CLIs' paste rule (``command_line._paste_pitch``:
 rows past the track repeat its last frame, no track gives zeros), through
 ``extract_iter``, ``extract`` and ``extract_batch``, over int16 and float32
 input, batch padding, both bucketings, rows too short to track and a
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from speech_tpu_torch import parallel as tpar
-from speech_tpu_torch.command_line import _PitchAppender
+from speech_tpu_torch.command_line import _paste_pitch
 from speech_tpu_torch.compute import STFTFrameComputer
 from speech_tpu_torch.ops.pitch import pitch_feats, pitch_frame_counts
 
@@ -56,7 +56,7 @@ def _alone(comp, sig, pitch):
         p3 = pitch_feats(x[0], RATE, device="cpu", **kw).numpy()
     except ValueError:  # too short for one frame
         p3 = np.zeros((0, 3), feats.dtype)
-    return _PitchAppender(comp, pitch).append(feats, p3)
+    return _paste_pitch(feats, p3)
 
 
 @pytest.mark.parametrize("dtype", [np.int16, np.float32])

@@ -333,6 +333,61 @@ def test_kaldi_tables_pitch(fake_kaldi, batch):
         np.testing.assert_allclose(got[utt][:, 10:], want[utt][:, 10:], rtol=0, atol=TOL_PITCH)
 
 
+def _pitch_case_table(case):
+    """The pitch cases' tables: "short" adds utterances too short for one
+    tracker frame (375 samples at 8 kHz), the two shortest sharing a
+    batch of 2 the tracker never runs on, the third beside a tracked row;
+    "stack" is :func:`_pitch_table`."""
+    table = _pitch_table()
+    if case == "short":
+        rng = np.random.RandomState(24)
+        table = {**dict(list(table.items())[:3]),
+                 **{f"short{n}": _wave_entry(rng, seconds=n / 8000) for n in (210, 240, 300)}}
+    return table
+
+
+_PITCH_CASE_ARGS = {"short": (), "stack": ("--postprocess",
+                                           json.dumps([{"name": "stack", "num_vectors": 3}]))}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pitch_case_output(case):
+    """The JAX command's --pitch output (host path) on a pitch case."""
+    with pytest.MonkeyPatch.context() as mp:
+        fake = _install_fake(mp)
+        fake.tables["ark:wav.ark"] = _pitch_case_table(case)
+        rc = jcli.compute_feats_from_kaldi_tables(
+            ["ark:wav.ark", "ark:feats.ark", _config(jcli), "--pitch", "{}",
+             "--batch-size", "0", *_PITCH_CASE_ARGS[case]])
+        return rc, dict(fake.written["ark:feats.ark"])
+
+
+@pytest.mark.parametrize("batch", ["2", "0"])
+@pytest.mark.parametrize("case", ["short", "stack"])
+def test_kaldi_tables_pitch_cases(fake_kaldi, case, batch, caplog):
+    """Utterances too short to track get zero columns; after a stack the
+    columns are pasted to the stacked rows, with one warning a run."""
+    fake_kaldi.tables["ark:wav.ark"] = _pitch_case_table(case)
+    with caplog.at_level("WARNING", logger=tcli.logger.name):
+        rc = tcli.compute_feats_from_kaldi_tables(
+            ["ark:wav.ark", "ark:feats.ark", _config(tcli), "--pitch", "{}",
+             "--batch-size", batch, *_PITCH_CASE_ARGS[case]])
+    warned = [r for r in caplog.records
+              if r.name == tcli.logger.name and "--pitch pastes row-for-row" in r.getMessage()]
+    assert len(warned) == (case == "stack")
+    jrc, want = _jax_pitch_case_output(case)
+    assert rc == jrc == 0
+    got = fake_kaldi.written["ark:feats.ark"]
+    assert list(got) == list(want) and len(got) == (6 if case == "short" else 4)
+    width = 13 if case == "short" else 33
+    for utt in want:
+        assert got[utt].shape == want[utt].shape and got[utt].shape[1] == width, utt
+        if utt.startswith("short"):
+            assert got[utt].shape[0] and not got[utt][:, -3:].any(), utt
+        np.testing.assert_allclose(got[utt][:, :-3], want[utt][:, :-3], rtol=0, atol=TOL)
+        np.testing.assert_allclose(got[utt][:, -3:], want[utt][:, -3:], rtol=0, atol=TOL_PITCH)
+
+
 @pytest.mark.parametrize("batch", ["4", "0"])
 def test_kaldi_tables_vad_trim(fake_kaldi, batch):
     rng = np.random.RandomState(23)
