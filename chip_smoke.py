@@ -40,8 +40,14 @@ Phases (each passes or the script exits non-zero):
 9. PLP and VADTrim through ``device_post_chain`` on the card against the
    same chain on the CPU;
 10. pitch at ``bench.py``'s width (``pitch_feats`` on 32 x 10 s of the
-    tones ``bench.py:310-320`` builds), timed, its Viterbi loop timed
-    apart, against a float64 CPU run of the port;
+    tones ``bench.py:310-320`` builds), timed, against a float64 CPU run of
+    the port, its one Viterbi kernel launch counted; then the pitch cell's
+    path (``pitch_extractor_phase``: ``ShardedExtractor(pitch=)`` on 64
+    voiced utterances of 2-20 s at 418 lags, host lengths bounding the
+    Viterbi and freezing the shorter rows) with the kernel against the same
+    batch on the Viterbi's loops, bit for bit, one launch a batch; then the
+    kernel alone at the cell's shape (``viterbi_phase``: 64 rows x 1,965
+    steps x 418 lags) against its loops, bit for bit and timed;
 11. resampling (16 to 8 kHz), speed perturbation (0.9, 1.1),
     reverberation (a 0.3 s RIR) and noise at 10 dB on 128 x 15 s, timed,
     each against a float64 CPU run of the port;
@@ -135,15 +141,15 @@ Phases (each passes or the script exits non-zero):
     feature-file mode reads back bitwise;
 20. the library store (``speech_tpu_torch.aot``): a fresh process
     (``chip_smoke.py --cold-start-child``) on an empty store with nvcc and
-    g++ reachable builds the four kernel libraries and shorten (each
-    build's seconds; stats: 5 misses, 0 hits) and runs the main path's
+    g++ reachable builds the five kernel libraries and shorten (each
+    build's seconds; stats: 6 misses, 0 hits) and runs the main path's
     batch through ``ShardedExtractor(aot_dir=)`` at 'double' (B2) and
     ``fft_mode="pallas"`` (B1), reads a ``.sph`` file and answers a
     ``FeatureServer(aot_dir=)`` burst of 16 requests: its seconds from
     the spawn to its first feature are the cold start; the same process
     on that store with ``PATH`` and ``CUDA_HOME`` an empty directory (no
     compiler: any build would raise) is the warm start (0 misses, 0
-    errors, 0 fallbacks, 5 hits); both children's features are bitwise
+    errors, 0 fallbacks, 6 hits); both children's features are bitwise
     equal to this process's on the same routes and batch.  Then phase
     19's 'double' command with ``--precompile --aot-dir``, its run in a
     fresh process with no compiler (files bitwise equal to phase 19's),
@@ -236,6 +242,7 @@ SOURCE = "speech_tpu_torch/csrc/stft_kernels.cu"  # B1, B3
 INT8_SOURCE = "speech_tpu_torch/csrc/int8_kernels.cu"  # B2
 LAYOUT_SOURCE = "speech_tpu_torch/csrc/layout_kernels.cu"  # the packed batch's rows
 DOUBLE_SOURCE = "speech_tpu_torch/csrc/double_kernels.cu"  # B4
+VITERBI_SOURCE = "speech_tpu_torch/csrc/viterbi_kernels.cu"  # the pitch tracker's Viterbi
 COMPUTE_PATH = ("stft_feats_rows", "stft_feats_frames", "stft_feats_int8")
 # streaming (bench.py:438-512): 100 ms chunks; 16 sessions x 64 chunks in
 # one wide call; 50 ticks for the per-chunk times
@@ -245,6 +252,9 @@ TOL_PIPE = 1e-9  # the float64 pipeline vs the batch ops (sums re-associated)
 # largest: the float tier's 1e-4 (TF32 keeps about three decimal digits)
 TOL_GRAD = 1e-4
 PITCH_LONG_SECONDS = 60
+# the pitch cell's Viterbi: 64 rows, 1,965 steps (its batches' longest
+# tracked row), 418 lags (ESPnet's lag_resolution 0.005 at 4 kHz)
+VITERBI_ROWS, VITERBI_STEPS, VITERBI_LAGS = 64, 1965, 418
 HALO_SECONDS = 600  # phase 15's one long signal
 CLI_UTTS, CLI_BATCH = 256, 64  # phase 19's corpus of files and its batches
 
@@ -941,19 +951,13 @@ def main():
                        for b in range(PITCH_BATCH)]).astype(np.float32)
     p_sigs = torch.tensor(p_host, device=dev)
     p_len = torch.full((PITCH_BATCH,), t.size, dtype=torch.int64, device=dev)
+    K.reset_launch_counts()
     feats_p, counts_p = pitch.pitch_feats(p_sigs, RATE, lengths=p_len, return_valid=True)
     torch.cuda.synchronize()
+    p_count = K.launch_counts()["viterbi_path"]
+    check(p_count == 1, f"pitch_feats launched the Viterbi kernel {p_count} times, not once")
+    launches["viterbi_path"] = p_count
     pitch_ms = cuda_ms(lambda: pitch.pitch_feats(p_sigs, RATE, lengths=p_len))
-    # the Viterbi loop alone, on the same NCCFs
-    work_rate, up, down, window, shift, tables = pitch._work_geometry(
-        RATE, 50.0, 400.0, 25.0, 10.0, 4000.0, 0.1, 0.01)
-    low = pitch._lowpass(resample.resample(p_sigs, up, down), work_rate, 1000.0)
-    full_len = torch.full((16,), low.shape[-1], device=dev)
-    nccf_p = torch.cat([pitch._nccf_1d(low[i : i + 16], full_len, window, shift, tables, 1.0)[0]
-                        for i in range(0, PITCH_BATCH, 16)])
-    tmat = pitch._const(tables[4], nccf_p)
-    nc = torch.movedim(nccf_p, -2, 0).contiguous()
-    viterbi_ms = cuda_ms(lambda: pitch._viterbi(nc, tmat))
     track64 = pitch.kaldi_pitch(p_host.astype(np.float64), RATE, device="cpu")
     feats64 = pitch.pitch_feats_from_track(track64)
     track32 = pitch.kaldi_pitch(p_sigs, RATE, lengths=p_len)
@@ -967,17 +971,16 @@ def main():
           f"{int(voiced.sum())}, f0 within rtol {TOL_PITCH:g} on {int(close.sum())} "
           f"({100 * share:.2f}%); POV column max abs {pov_err:.3e} (tol {TOL_PITCH:g})",
           flush=True)
-    print(f"pitch Viterbi loop ({nc.shape[0]} frames, [{PITCH_BATCH}, {nc.shape[-1]}, "
-          f"{nc.shape[-1]}] a step): {viterbi_ms:.3f} ms, {100 * viterbi_ms / pitch_ms:.1f}% "
-          f"of pitch_feats", flush=True)
     check(tuple(feats_p.shape) == (PITCH_BATCH, track64.f0.shape[-1], 3),
           f"pitch_feats: shape {tuple(feats_p.shape)}")
     check(bool(torch.isfinite(feats_p).all()), "pitch_feats: non-finite values")
     check(torch.equal(counts_p.cpu(), track64.valid.sum(-1)), "pitch frame counts differ")
     check(share >= 0.99, f"pitch f0 within rtol {TOL_PITCH:g} on only {100 * share:.2f}%")
     check(pov_err <= TOL_PITCH, f"pitch POV column vs float64: {pov_err}")
-    del p_sigs, feats_p, low, nccf_p, nc, track32
+    del p_sigs, feats_p, track32
     torch.cuda.empty_cache()
+    launches["viterbi_path"] += pitch_extractor_phase(dev, smi)
+    entries["viterbi_path"] = viterbi_phase(dev, smi)
 
     # 11. resampling and augmentation at the main path's 128 x 15 s; the
     # float64 CPU references take the first CPU_ROWS rows (every op is per
@@ -1132,6 +1135,114 @@ def main():
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+def pitch_extractor_phase(dev, smi):
+    """The pitch cell's path: ``ShardedExtractor(pitch=)`` at ESPnet's lag
+    grid (418 lags) on one batch of 64 voiced int16 utterances of 2-20 s
+    (pulse trains gliding within 80-300 Hz over noise), whose host lengths
+    end the Viterbi at the longest row's frames and freeze the shorter
+    rows at theirs; its rows with the kernel equal those of the same batch
+    with ``viterbi_on_kernel`` refused (the Viterbi's loops) bit for bit,
+    the kernel runs once a batch, and ``pitch_kernel_steps`` counts every
+    one of ``pitch_steps``.  Returns the kernel's launches."""
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.compute import STFTFrameComputer
+    from speech_tpu_torch.ops import pitch
+    from speech_tpu_torch.ops import stft_kernels as K
+
+    rng = np.random.RandomState(23)
+    batch = []
+    for n in rng.randint(2 * RATE, 20 * RATE, size=VITERBI_ROWS):
+        t = np.arange(n) / RATE
+        f0 = 80.0 * (300.0 / 80.0) ** (0.5 + 0.5 * np.sin(2 * np.pi * t / rng.uniform(0.5, 2.0)))
+        pulses = np.diff(np.floor(np.cumsum(f0) / RATE), prepend=0.0)
+        x = np.convolve(pulses, np.exp(-np.arange(80) / 12.0))[:n] + 0.05 * rng.randn(n)
+        batch.append(np.round(x / np.abs(x).max() * 8000).astype(np.int16))
+    comp = STFTFrameComputer(dict(BANK, num_filts=80), device=dev, frame_length_ms=25,
+                             frame_shift_ms=10, precision="highest")
+    opts = {"lag_resolution": 0.005}
+    check(pitch.pitch_lag_count(RATE, **opts) == VITERBI_LAGS, "the cell's lag grid moved")
+    ex = par.ShardedExtractor(comp, pitch=opts)
+    list(ex.extract_iter([batch], min_batch=VITERBI_ROWS))  # warm-up
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = list(ex.extract_iter([batch], min_batch=VITERBI_ROWS))[0]
+    ms = (time.perf_counter() - t0) * 1e3
+    count = K.launch_counts()["viterbi_path"]
+    on_kernel = pitch.viterbi_on_kernel
+    pitch.viterbi_on_kernel = lambda *a: False
+    try:
+        loops = par.ShardedExtractor(comp, pitch=opts)
+        want = list(loops.extract_iter([batch], min_batch=VITERBI_ROWS))[0]
+    finally:
+        pitch.viterbi_on_kernel = on_kernel
+    st, lst = ex.stats, loops.stats
+    differ = sum(int(not np.array_equal(a, b)) for a, b in zip(got, want))
+    print(f"pitch on the extractor ({VITERBI_ROWS} utterances of 2-20 s, {VITERBI_LAGS} lags, "
+          f"host lengths): {count} viterbi_path launch a batch; {differ} of {len(got)} rows "
+          f"differ from the loops'; pitch_steps {st['pitch_steps']} of {st['pitch_frames']} "
+          f"frames, pitch_kernel_steps {st['pitch_kernel_steps']} (loops "
+          f"{lst['pitch_kernel_steps']}); {ms:.1f} ms a batch on the host clock [{smi}]",
+          flush=True)
+    check(count == 1, f"the extractor launched the Viterbi kernel {count} times a batch")
+    check(len(got) == len(want) == VITERBI_ROWS and differ == 0,
+          f"the extractor's pitch rows differ from the loops' on {differ} rows")
+    check(0 < st["pitch_steps"] < st["pitch_frames"], f"the Viterbi was not bounded: {st}")
+    check(st["pitch_kernel_steps"] == st["pitch_steps"] == 2 * lst["pitch_steps"]
+          and lst["pitch_kernel_steps"] == 0, f"pitch_kernel_steps: {st}, loops {lst}")
+    return count
+
+
+def viterbi_phase(dev, smi):
+    """The pitch tracker's Viterbi kernel alone at the pitch cell's shape
+    (``VITERBI_ROWS`` rows, ``VITERBI_STEPS`` steps, ``VITERBI_LAGS``
+    lags; scores uniform in [-1, 1], every row tracked to the end) against
+    its two loops on the same scores, bit for bit; its bound is
+    ``bench_port/roofline_pitch.py``'s Viterbi term (an add and a min a
+    pair of lags a row a step at the float32 rate; the scores read, int16
+    back-pointers written and the table read once).  Returns its
+    kernels-line entry."""
+    import torch
+
+    from speech_tpu_torch.ops import pitch
+    from speech_tpu_torch.ops import stft_kernels as K
+
+    rows, steps, L = VITERBI_ROWS, VITERBI_STEPS, VITERBI_LAGS
+    rng = np.random.RandomState(10)
+    nc = torch.tensor(rng.uniform(-1.0, 1.0, (rows, steps, L)).astype(np.float32), device=dev)
+    nc = torch.movedim(nc, 1, 0)  # (steps, rows, L), as _choose_lags hands it over
+    tables = pitch._lag_tables(4000.0, 50.0, 400.0, 0.1, 0.005)
+    check(len(tables[2]) == L, f"the lag grid has {len(tables[2])} lags")
+    tmat = pitch._const(tables[4], nc)
+    plan = K.viterbi_launch_plan(dev, rows, L)
+    got = pitch._viterbi(nc, tmat)
+    on_kernel = pitch.viterbi_on_kernel
+    pitch.viterbi_on_kernel = lambda *a: False
+    try:
+        want = pitch._viterbi(nc, tmat)
+        loop_ms = cuda_ms(lambda: pitch._viterbi(nc, tmat), reps=3)
+    finally:
+        pitch.viterbi_on_kernel = on_kernel
+    differ = int((got != want).sum())
+    ms = cuda_ms(lambda: pitch._viterbi(nc, tmat))
+    entry = dict(
+        replaces="none: the JAX package runs the Viterbi as two lax.scan passes "
+                 "(speech_tpu/ops/pitch.py); the port's plain version is "
+                 "speech_tpu_torch/ops/pitch.py:_viterbi's two loops",
+        err=float(differ), tol=0, ms=ms, plain_ms=loop_ms,
+        ops=[(2.0 * rows * steps * L * L, PEAK_FP32_FLOPS)],
+        nbytes=rows * steps * L * (4 + 2) + L * L * 4, source=VITERBI_SOURCE,
+    )
+    bound, bound_by = bound_ms(entry)
+    print(f"viterbi_path at the pitch cell's shape ({rows} rows x {steps} steps x {L} lags; plan "
+          f"{plan}): {differ} lags differ from the loops'; {ms:.3f} ms a launch, the loops "
+          f"{loop_ms:.3f} ms ({loop_ms / ms:.1f}x); bound {bound:.3f} ms by {bound_by} "
+          f"({100 * bound / ms:.2f}%) [{smi}]", flush=True)
+    check(differ == 0, f"viterbi_path differs from the loops on {differ} lags")
+    del nc, got, want
+    torch.cuda.empty_cache()
+    return entry
 
 
 def pitch_split(sp, sigs):
@@ -2506,15 +2617,15 @@ def cold_start_phase(dev, smi, host, tmp):
     # (a) and (c): a fresh process, an empty store, the compilers reachable
     cold = child("cold", {})
     st = cold["stats"]
-    check(st["misses"] == 5 and st["hits"] == 0 and st["errors"] == 0 and st["fallbacks"] == 0,
+    check(st["misses"] == 6 and st["hits"] == 0 and st["errors"] == 0 and st["fallbacks"] == 0,
           f"cold store stats {st}")
     check(sorted(cold["build_seconds"]) == ["double_kernels", "int8_kernels", "layout_kernels",
-                                            "shorten", "stft_kernels"],
+                                            "shorten", "stft_kernels", "viterbi_kernels"],
           f"builds {cold['build_seconds']}")
     store_bytes = AOTCache(store).size_bytes()
     print(f"cold start (a fresh process, an empty store, nvcc and g++ reachable): builds "
           f"{ {k: round(v, 3) for k, v in sorted(cold['build_seconds'].items())} } s "
-          f"(the four nvcc builds run together), stats {st}; first feature "
+          f"(the five nvcc builds run together), stats {st}; first feature "
           f"{cold['first_feature_s']:.3f} s after the spawn ({cold['split_s']}), whole child "
           f"{cold['wall_s']:.3f} s; store {store_bytes} bytes [{smi}]", flush=True)
 
@@ -2522,7 +2633,7 @@ def cold_start_phase(dev, smi, host, tmp):
     warm = child("warm", no_compilers)
     st = warm["stats"]
     check(not any(warm["compilers"].values()), f"the warm child found {warm['compilers']}")
-    check(st["misses"] == 0 and st["errors"] == 0 and st["fallbacks"] == 0 and st["hits"] == 5,
+    check(st["misses"] == 0 and st["errors"] == 0 and st["fallbacks"] == 0 and st["hits"] == 6,
           f"warm store stats {st}")
     check(warm["shorten_native"] and cold["shorten_native"], "shorten fell back to Python")
 

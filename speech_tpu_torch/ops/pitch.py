@@ -21,7 +21,9 @@ The host tables are numpy copies of the JAX package's.  On the device:
   holds the lengths, with each step's costs shifted by their minimum so
   that float32 keeps the float64 path; ``torch.argmin`` returns the first
   index of a tie, as ``jnp.argmin`` does, so the path is the
-  forward-pointer path;
+  forward-pointer path.  On a CUDA device in float32 the same path comes
+  from one hand-written kernel launch instead
+  (:func:`.stft_kernels.viterbi_path`, :func:`viterbi_on_kernel`);
 - every product runs in IEEE float32 (or float64), as the reference's
   ``Precision.HIGHEST``.
 
@@ -38,6 +40,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import stft_kernels
 from ._device import as_tensor, host_constant
 from .framing import frame_padded
 from .postops import delta_filters, deltas
@@ -51,6 +54,8 @@ __all__ = [
     "pitch_feats",
     "pitch_feats_from_track",
     "pitch_frame_counts",
+    "pitch_lag_count",
+    "viterbi_on_kernel",
 ]
 
 
@@ -232,6 +237,16 @@ def _nccf_1d(
     return nccf_pitch, nccf_pov, fvalid
 
 
+def viterbi_on_kernel(device, dtype, lags: int) -> bool:
+    """Whether :func:`_viterbi` runs its scores on the hand-written kernel
+    (:func:`.stft_kernels.viterbi_path`): on a CUDA device, in float32 and
+    at most :data:`.stft_kernels.VITERBI_MAX_LAGS` lags.  Elsewhere (the
+    CPU, float64, more lags) it runs its two loops.  The extractor asks
+    the same question to count the kernel's steps."""
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
+            and 1 <= int(lags) <= stft_kernels.VITERBI_MAX_LAGS)
+
+
 def _viterbi(nc, tmat, counts=None, steps=None):
     """The lag path minimising ``sum_t -nc[t, lag_t] + tmat[lag_t-1,
     lag_t]`` for ``(T, ..., L)`` local scores: ``(T, ...)`` int64 indices.
@@ -259,9 +274,17 @@ def _viterbi(nc, tmat, counts=None, steps=None):
     a row's costs are frozen with a minimum of exactly 0 at their first
     argmin ``j``, and every off-diagonal transition cost is above 0 (at a
     penalty of 0 the first-index rule keeps ``j``), so the backtrack over
-    them never leaves ``j``."""
+    them never leaves ``j``.
+
+    Where :func:`viterbi_on_kernel` takes the scores, one kernel launch
+    gives the same path, bit for bit; the loops are its plain version."""
     T = nc.shape[0]
     steps = T if steps is None else max(1, min(int(steps), T))
+    if viterbi_on_kernel(nc.device, nc.dtype, nc.shape[-1]):
+        flat = nc.reshape((T, -1, nc.shape[-1]))
+        path = stft_kernels.viterbi_path(
+            flat, tmat, None if counts is None else counts.reshape(-1), steps)
+        return path.reshape(nc.shape[:-1])
     cost = -nc[0]
     cost = cost - torch.amin(cost, dim=-1, keepdim=True)
     costs = []
@@ -389,6 +412,18 @@ _GRID_KEYS = (
 )
 
 
+def _grid_geometry(rate: float, kwargs):
+    """:func:`_work_geometry` of :func:`pitch_feats`' keyword arguments
+    ``kwargs``: an unknown name raises, and those that do not set the grid
+    are not used."""
+    params = inspect.signature(kaldi_pitch).parameters
+    unknown = set(kwargs) - set(params) - {"normalization_window", "delta_window"}
+    if unknown:
+        raise TypeError(f"unknown pitch arguments: {sorted(unknown)}")
+    grid = {k: kwargs.get(k, params[k].default) for k in _GRID_KEYS}
+    return _work_geometry(rate, **grid)
+
+
 def pitch_frame_counts(padded_len: int, lengths, rate: float, **kwargs):
     """The frame grid of :func:`kaldi_pitch` on the host, from shapes and
     lengths alone: ``(frames, valid)``, the frames a ``(..., padded_len)``
@@ -396,15 +431,17 @@ def pitch_frame_counts(padded_len: int, lengths, rate: float, **kwargs):
     :func:`kaldi_pitch` raises) and each row's valid count (numpy, like
     ``lengths``).  Keyword arguments are :func:`pitch_feats`': an unknown
     name raises, and those that do not set the grid are not used."""
-    params = inspect.signature(kaldi_pitch).parameters
-    unknown = set(kwargs) - set(params) - {"normalization_window", "delta_window"}
-    if unknown:
-        raise TypeError(f"unknown pitch arguments: {sorted(unknown)}")
-    grid = {k: kwargs.get(k, params[k].default) for k in _GRID_KEYS}
-    _, up, down, window, shift, tables = _work_geometry(rate, **grid)
+    _, up, down, window, shift, tables = _grid_geometry(rate, kwargs)
     span = _nccf_span(window, tables)
     return (int(_frame_counts(padded_len, up, down, span, shift)),
             _frame_counts(lengths, up, down, span, shift))
+
+
+def pitch_lag_count(rate: float, **kwargs) -> int:
+    """The lags of :func:`kaldi_pitch`'s Viterbi (its fine lag grid) for
+    :func:`pitch_feats`' keyword arguments, as :func:`pitch_frame_counts`
+    reads them."""
+    return len(_grid_geometry(rate, kwargs)[-1][2])
 
 
 def _frame_counts(lengths, up: int, down: int, span: int, shift: int):

@@ -21,6 +21,13 @@ The counterpart of :mod:`speech_tpu.ops.pallas_stft`:
   as the zero-padded ``(rows, max_len)`` block the computers take, on the
   card (``csrc/layout_kernels.cu``), so that the host writes and copies no
   padding.
+- :func:`viterbi_path` replaces no TPU kernel either: it is the pitch
+  tracker's Viterbi (``speech_tpu_torch/ops/pitch.py:_viterbi``, the JAX
+  package's two ``lax.scan`` passes) in one launch
+  (``csrc/viterbi_kernels.cu``), the path of ``_viterbi``'s two Python
+  loops bit for bit; those loops are its plain version and stay the path
+  of the CPU, of float64 and of more than :data:`VITERBI_MAX_LAGS` lags,
+  which ``_viterbi`` takes itself: this wrapper raises on a CPU tensor.
 
 Every wrapper casts its inputs as the JAX function does, checks device,
 dtype, shape and contiguity, and then runs its plain version for CPU
@@ -82,6 +89,9 @@ __all__ = [
     "stft_feats_int8_plain",
     "stft_feats_rows",
     "stft_feats_rows_plain",
+    "viterbi_launch_plan",
+    "viterbi_path",
+    "VITERBI_MAX_LAGS",
 ]
 
 _FLOAT_PRECISIONS = (None, "highest", "high", "default")
@@ -199,6 +209,27 @@ _SIGNATURES = {
         ctypes.c_void_p,  # out
         ctypes.c_void_p,  # stream
     ],
+    "stk_viterbi_plan": [
+        ctypes.c_int,  # rows
+        ctypes.c_int,  # lags
+        _c_int_p,  # plan
+    ],
+    "stk_viterbi": [
+        ctypes.c_void_p,  # nc
+        ctypes.c_longlong,  # st
+        ctypes.c_longlong,  # sb
+        ctypes.c_void_p,  # tmat
+        ctypes.c_void_p,  # counts
+        ctypes.c_int,  # rows
+        ctypes.c_int,  # lags
+        ctypes.c_int,  # frames
+        ctypes.c_int,  # steps
+        ctypes.c_void_p,  # bp
+        ctypes.c_void_p,  # path
+        ctypes.c_int,  # cluster
+        ctypes.c_int,  # rows_per_cluster
+        ctypes.c_void_p,  # stream
+    ],
 }
 # launcher -> the source (csrc/<stem>.cu) whose library exports it, beside
 # that library's own stk_error_string
@@ -210,6 +241,8 @@ _LIBRARIES = {
     "stk_double_plan": "double_kernels",
     "stk_int8_plan": "int8_kernels",
     "stk_layout_rows": "layout_kernels",
+    "stk_viterbi_plan": "viterbi_kernels",
+    "stk_viterbi": "viterbi_kernels",
 }
 
 
@@ -1197,7 +1230,95 @@ def layout_rows(packed, offsets, counts, max_len: int):
     return out
 
 
-KERNELS = (stft_feats_rows, stft_feats_frames, stft_feats_int8, stft_feats_double, layout_rows)
+# --- the pitch tracker's Viterbi ------------------------------------------------
+
+# the most lags the kernel takes (csrc/viterbi_kernels.cu's kMaxLags): its
+# back-pointers are int16 and its cost buffers sized for them
+VITERBI_MAX_LAGS = 2048
+_VITERBI_PLAN_KEYS = ("cluster", "rows_per_cluster", "threads", "smem_bytes", "table_in_smem",
+                      "resident_clusters", "max_lags")
+
+
+@functools.lru_cache(maxsize=64)
+def _viterbi_plan(device_index: int, rows: int, lags: int):
+    """:func:`viterbi_launch_plan` on card ``device_index``, asked once."""
+    fn, err = _launcher("stk_viterbi_plan")
+    plan = (ctypes.c_int * len(_VITERBI_PLAN_KEYS))()
+    with torch.cuda.device(device_index):
+        rc = fn(rows, lags, plan)
+    if rc != 0:
+        raise RuntimeError(
+            f"stk_viterbi_plan failed ({rc}): " + err(rc).decode(errors="replace"))
+    return dict(zip(_VITERBI_PLAN_KEYS, plan))
+
+
+def viterbi_launch_plan(device, rows: int, lags: int) -> dict:
+    """The launch :func:`viterbi_path` takes for ``rows`` rows of ``lags``
+    lags on ``device``: ``cluster`` blocks a thread-block cluster and
+    ``rows_per_cluster`` rows a cluster (the pair that, with the clusters
+    the card holds at once, costs a step least; the transition table's
+    slices in shared memory where they fit), ``threads`` and
+    ``smem_bytes`` a block, ``table_in_smem``, ``resident_clusters`` and
+    ``max_lags``."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return dict(_viterbi_plan(index, int(rows), int(lags)))
+
+
+def viterbi_path(nc, tmat, counts=None, steps=None, _plan=None):
+    """The Viterbi lag path of ``(T, rows, L)`` float32 scores ``nc`` (lags
+    contiguous, any strides over frames and rows) under the ``(L, L)``
+    transition costs ``tmat``: ``(T, rows)`` int64, bit for bit the path of
+    ``speech_tpu_torch.ops.pitch._viterbi``'s loops, ties and frozen rows
+    included.  ``counts`` (int64 ``(rows,)`` on the same card, or None)
+    ends each row's recursion at its count; ``steps`` (a host number,
+    clamped to ``1 .. T``) ends the recursion, and frames ``steps`` to ``T
+    - 1`` repeat each row's lag at ``steps - 1``.  One launch on the
+    current stream (the tests fix its ``cluster`` and ``rows_per_cluster``,
+    1 .. 8 and 1 .. 3, through ``_plan``), with an int16
+    ``(steps, rows, L)`` scratch of back-pointers; nothing waits for the
+    card.  Raises, without launching, on anything but CUDA float32 scores
+    of at most :data:`VITERBI_MAX_LAGS` lags."""
+    if not isinstance(nc, torch.Tensor) or nc.dtype != torch.float32:
+        raise ValueError(f"nc must be a float32 tensor, got {getattr(nc, 'dtype', type(nc))}")
+    if tmat.dtype != torch.float32:
+        raise ValueError(f"tmat must be float32, got {tmat.dtype}")
+    if nc.dim() != 3 or nc.shape[0] < 1 or nc.stride(-1) != 1:
+        raise ValueError(
+            f"nc must be (frames, rows, lags) with contiguous lags, got {tuple(nc.shape)} "
+            f"strides {nc.stride()}")
+    T, rows, L = nc.shape
+    if not 1 <= L <= VITERBI_MAX_LAGS:
+        raise ValueError(f"the kernel takes 1 .. {VITERBI_MAX_LAGS} lags, got {L}")
+    if tuple(tmat.shape) != (L, L):
+        raise ValueError(f"tmat must be ({L}, {L}), got {tuple(tmat.shape)}")
+    if counts is not None and (counts.dtype != torch.int64 or tuple(counts.shape) != (rows,)):
+        raise ValueError(f"counts must be int64 ({rows},), got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
+    if nc.device.type != "cuda":
+        raise ValueError(f"viterbi_path runs on a CUDA device, got {nc.device}")
+    tensors = {"tmat": tmat} if counts is None else {"tmat": tmat, "counts": counts}
+    _check_cuda(nc, **tensors)
+    steps = T if steps is None else max(1, min(int(steps), T))
+    path = torch.empty((T, rows), dtype=torch.int64, device=nc.device)
+    if rows == 0:
+        return path
+    plan = _plan or viterbi_launch_plan(nc.device, rows, L)
+    bp = torch.empty((steps, rows, L), dtype=torch.int16, device=nc.device)
+    with torch.cuda.device(nc.device):
+        _launch(
+            "stk_viterbi", "viterbi_path",
+            nc.data_ptr(), nc.stride(0), nc.stride(1), tmat.data_ptr(),
+            None if counts is None else counts.data_ptr(), rows, L, T, steps,
+            bp.data_ptr(), path.data_ptr(), plan["cluster"], plan["rows_per_cluster"],
+            _stream(nc),
+        )
+    viterbi_path.launches += 1
+    return path
+
+
+KERNELS = (stft_feats_rows, stft_feats_frames, stft_feats_int8, stft_feats_double, layout_rows,
+           viterbi_path)
 for _fn in KERNELS:
     _fn.launches = 0
 

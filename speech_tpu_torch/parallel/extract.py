@@ -139,8 +139,12 @@ class ShardedExtractor:
         share of the computer's input that is not padding.  With
         ``pitch``, also ``pitch_frames`` (rows times the frames the
         tracker ran over), ``pitch_valid_frames`` (the rows' tracked
-        frames) and ``pitch_steps`` (rows times the frames its Viterbi
-        stepped over: the longest row's tracked frames).
+        frames), ``pitch_steps`` (rows times the frames its Viterbi
+        stepped over: the longest row's tracked frames) and
+        ``pitch_kernel_steps`` (those of ``pitch_steps`` that the
+        hand-written Viterbi kernel ran: all of them on a CUDA device in
+        float32, none on the CPU or in float64;
+        :func:`speech_tpu_torch.ops.pitch.viterbi_on_kernel`).
     """
 
     def __init__(
@@ -176,7 +180,13 @@ class ShardedExtractor:
         if pitch is not None:
             self._pitch = {"frame_shift_ms": computer.frame_shift_ms, **pitch}
             self._pitch_grid(0, [])  # unknown keys and a bad grid fail here
-            self.stats.update(pitch_frames=0, pitch_valid_frames=0, pitch_steps=0)
+            self.stats.update(pitch_frames=0, pitch_valid_frames=0, pitch_steps=0,
+                              pitch_kernel_steps=0)
+            from ..ops.pitch import pitch_lag_count, viterbi_on_kernel
+
+            # the tracker's Viterbi runs on the hand-written kernel here
+            lags = pitch_lag_count(computer.bank.sampling_rate, **self._pitch)
+            self._pitch_on_kernel = viterbi_on_kernel(computer.device, computer._dtype, lags)
         # batches cross packed and are laid out on the card (a GPU), else
         # padded on the host
         self._packs = computer.device.type == "cuda"
@@ -354,7 +364,10 @@ class ShardedExtractor:
             if self._pitch is not None:
                 st["pitch_frames"] += per * frames
                 st["pitch_valid_frames"] += int(valid.sum())
-                st["pitch_steps"] += per * int(valid.max(initial=0))
+                steps = per * int(valid.max(initial=0))
+                st["pitch_steps"] += steps
+                if self._pitch_on_kernel:
+                    st["pitch_kernel_steps"] += steps
         return (*self._wrap(feats, counts), n)
 
     def _pitch_grid(self, max_len: int, lengths):

@@ -225,3 +225,44 @@ def test_pitch_steps_count_the_rows_times_the_longest_row(monkeypatch):
         assert ex.stats["pitch_steps"] - before["pitch_steps"] == 6 * valid.max() == 6 * asked[-1][1]
         assert (ex.stats["pitch_valid_frames"] - before["pitch_valid_frames"]
                 == valid.sum() > 0)
+
+
+def test_pitch_kernel_steps_count_only_the_kernels_steps(monkeypatch):
+    """``stats["pitch_kernel_steps"]`` stays 0 on a CPU extractor, whose
+    Viterbi runs its loops, while ``pitch_steps`` counts as before; where
+    ``viterbi_on_kernel`` takes the computer's device, type and lags (here
+    a stand-in that runs the loops), it counts every one of those steps,
+    and the rows stay the same."""
+    from speech_tpu_torch.ops import pitch as TP
+    from speech_tpu_torch.ops import stft_kernels as K
+
+    comp = _computer()
+    batches = _batches(np.int16, RAGGED)
+    ex = tpar.ShardedExtractor(comp, pitch=PITCH)
+    want = list(ex.extract_iter(batches, min_batch=6))
+    assert ex.stats["pitch_steps"] > 0 and ex.stats["pitch_kernel_steps"] == 0
+    asked = []
+    loops = TP._viterbi
+
+    def kernel(nc, tmat, counts, steps):
+        asked.append(steps)
+        with monkeypatch.context() as m:
+            m.setattr(TP, "viterbi_on_kernel", lambda *a: False)
+            return loops(nc, tmat, counts, steps)
+
+    seen = []
+
+    def on_kernel(device, dtype, lags):
+        seen.append((torch.device(device).type, dtype, lags))
+        return True
+
+    monkeypatch.setattr(TP, "viterbi_on_kernel", on_kernel)
+    monkeypatch.setattr(K, "viterbi_path", kernel)
+    ex = tpar.ShardedExtractor(comp, pitch=PITCH)
+    got = list(ex.extract_iter(batches, min_batch=6))
+    assert len(asked) == len(batches)
+    assert ex.stats["pitch_kernel_steps"] == ex.stats["pitch_steps"] == 6 * sum(asked) > 0
+    assert set(seen) == {("cpu", torch.float32, 418)}
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert np.array_equal(a, b)

@@ -1052,20 +1052,22 @@ def test_extract_iter_pitch_on_card_matches_cpu():
 @pytest.mark.cuda
 @pytest.mark.filterwarnings("ignore:Synchronization debug mode is a prototype")
 @pytest.mark.filterwarnings("ignore:Warning. Profiler clears events")
-def test_pitch_viterbi_stops_at_the_longest_row_on_card():
+def test_pitch_viterbi_stops_at_the_longest_row_on_card(monkeypatch):
     """At the pitch cell's shapes (64 rows of 2-20 s of int16 PCM in the
-    524,288-sample bucket, 418 lags): host lengths end the Viterbi at the
-    batch's longest tracked row and give the track of lengths on the card
-    (the loops over every frame) bit for bit; the extractor's
-    ``"extract.pitch"`` range holds at most 9 kernels a step past the first
-    plus 400; and after one warm-up batch ``_with_pitch`` queues no host
-    synchronisation."""
+    524,288-sample bucket, 418 lags), on the Viterbi's two loops (the
+    kernel's plain version, taken here by making ``viterbi_on_kernel``
+    refuse): host lengths end the Viterbi at the batch's longest tracked
+    row and give the track of lengths on the card (the loops over every
+    frame) bit for bit; the extractor's ``"extract.pitch"`` range holds at
+    most 9 kernels a step past the first plus 400; and after one warm-up
+    batch ``_with_pitch`` queues no host synchronisation."""
     from torch.autograd import DeviceType
 
     from speech_tpu_torch import parallel as par
     from speech_tpu_torch.ops import pitch as TP
 
     dev = _device()
+    monkeypatch.setattr(TP, "viterbi_on_kernel", lambda *a: False)
     rng = np.random.RandomState(45)
     lens = rng.randint(2 * 16000, 20 * 16000, size=64).astype(np.int64)
     comp = STFTFrameComputer({**BANK, "num_filts": 80}, frame_length_ms=25,
@@ -1112,6 +1114,215 @@ def test_pitch_viterbi_stops_at_the_longest_row_on_card():
                and ranges[0].start <= e.time_range.start
                and e.time_range.end <= ranges[0].end]
     assert 9 * (bound - 1) < len(kernels) <= 9 * (bound - 1) + 400, (len(kernels), bound)
+
+
+# --- the pitch tracker's Viterbi kernel against its loops, on the card ---------
+
+
+def _loops(monkeypatch, nc, tmat, counts=None, steps=None):
+    """``_viterbi``'s two loops on the card (``viterbi_on_kernel`` made to
+    refuse for the call)."""
+    from speech_tpu_torch.ops import pitch as TP
+
+    with monkeypatch.context() as m:
+        m.setattr(TP, "viterbi_on_kernel", lambda *a: False)
+        return TP._viterbi(nc, tmat, counts, steps)
+
+
+def _pitch_table(L, penalty=0.1):
+    """The tracker's ``(L, L)`` transition costs at 4 kHz: the lag grid's
+    first ``L`` lags (418 at resolution 0.005, 210 at 0.01)."""
+    from speech_tpu_torch.ops import pitch as TP
+
+    resolution = 0.005 if L > 210 else 0.01
+    trans = TP._lag_tables(4000.0, 50.0, 400.0, penalty, resolution)[4]
+    if L > trans.shape[0]:  # past the grid: the same law on a longer one
+        lags = np.log(12.5 * 1.003 ** np.arange(L))
+        trans = penalty * (lags[:, None] - lags[None, :]) ** 2
+    return torch.tensor(trans[:L, :L], dtype=torch.float32, device="cuda")
+
+
+def _viterbi_scores(kind, T, rows, L, seed):
+    """``(T, rows, L)`` float32 scores, from the rows' ``(rows, T, L)``
+    block as ``_choose_lags`` hands them over: ``random`` in [-1, 1];
+    ``constant`` rows (every lag of a frame the same score, so that every
+    cost ties); ``pairs`` (each lag repeats its left neighbour's score);
+    ``quarters`` (multiples of 1/4, ties everywhere)."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1.0, 1.0, size=(rows, T, L)).astype(np.float32)
+    if kind == "constant":
+        x[:] = x[..., :1]
+    elif kind == "pairs":
+        x[..., 1::2] = x[..., 0:L - 1:2]
+    elif kind == "quarters":
+        x = np.round(x * 4) / 4
+    return torch.movedim(torch.tensor(x, device="cuda"), 1, 0)
+
+
+# (kind, frames, rows, lags, penalty, counts, steps): counts "none" (no
+# counts), "full" (every row to steps), "ragged" (0 .. steps, frozen rows);
+# steps None runs every frame
+VITERBI_CASES = {
+    "random": ("random", 300, 64, 418, 0.1, "none", None),
+    "random-ragged-bounded": ("random", 300, 64, 418, 0.1, "ragged", 200),
+    "random-ragged-whole": ("random", 300, 64, 418, 0.1, "ragged", None),
+    "constant-rows": ("constant", 120, 9, 418, 0.1, "ragged", 100),
+    "repeated-columns": ("pairs", 200, 16, 418, 0.1, "ragged", None),
+    "penalty-0": ("quarters", 150, 12, 418, 0.0, "ragged", 140),
+    "penalty-0-random": ("random", 150, 12, 418, 0.0, "none", None),
+    "one-step": ("random", 40, 8, 418, 0.1, "ragged", 1),
+    "one-frame": ("random", 1, 8, 418, 0.1, "none", None),
+    "one-row": ("random", 300, 1, 418, 0.1, "full", 250),
+    "lags-210": ("random", 300, 64, 210, 0.1, "ragged", 280),
+    "lags-333": ("quarters", 200, 13, 333, 0.1, "ragged", None),
+    "lags-1": ("random", 30, 5, 1, 0.1, "ragged", None),
+    "lags-7": ("quarters", 60, 5, 7, 0.1, "ragged", None),
+    "rows-5": ("random", 200, 5, 418, 0.1, "ragged", 190),
+    "lags-1024": ("random", 40, 3, 1024, 0.1, "ragged", None),
+    "lags-2048": ("quarters", 12, 2, 2048, 0.1, "ragged", None),
+}
+
+
+def _viterbi_inputs(case, seed=0):
+    kind, T, rows, L, penalty, counts, steps = VITERBI_CASES[case]
+    nc = _viterbi_scores(kind, T, rows, L, seed)
+    tmat = _pitch_table(L, penalty)
+    c = None
+    if counts == "full":
+        c = torch.full((rows,), steps or T, dtype=torch.int64, device="cuda")
+    elif counts == "ragged":
+        hi = steps or T
+        c = torch.tensor(np.random.RandomState(seed + 1).randint(0, hi + 1, size=rows),
+                         dtype=torch.int64, device="cuda")
+        c[0] = hi  # the longest row reaches the bound
+    return nc, tmat, c, steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(VITERBI_CASES))
+def test_viterbi_kernel_path_is_the_loops_bit_for_bit(case, monkeypatch):
+    """One launch of ``viterbi_path`` (through ``_viterbi``) gives the
+    int64 path of the loops on the same card, element for element: random
+    scores, planted exact ties (constant rows, repeated columns, scores on
+    a quarter grid, a penalty of 0), frozen rows through ``counts`` with
+    ``steps`` below ``T`` and at it, no counts, one step, one frame, one
+    row, 418, 210, 333, 7 and 1 lags, rows that fill no cluster, and 1,024
+    and 2,048 lags (the table read from L2)."""
+    from speech_tpu_torch.ops import pitch as TP
+
+    _device()
+    nc, tmat, counts, steps = _viterbi_inputs(case)
+    K.reset_launch_counts()
+    got = TP._viterbi(nc, tmat, counts, steps)
+    assert K.launch_counts()["viterbi_path"] == 1
+    want = _loops(monkeypatch, nc, tmat, counts, steps)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int64
+    assert got.shape == want.shape == nc.shape[:2]
+    bad = (got != want).nonzero()
+    assert bad.shape[0] == 0, (bad.shape[0], bad[:5].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", range(1, 9))
+@pytest.mark.parametrize("rows_per_cluster", [1, 2, 3])
+def test_viterbi_kernel_every_launch_shape(cluster, rows_per_cluster, monkeypatch):
+    """Every cluster size and every rows-a-cluster the launcher takes
+    gives the loops' path, on 7 rows (a cluster left part empty) of 97
+    lags (one or two column groups a block; the last blocks of 7 and 8
+    with fewer columns, or none) with ties and frozen rows; the automatic
+    plan at the pitch cell's shape keeps the table in shared memory, and
+    1,024 lags read it from device memory, a row a cluster; the limit is
+    ``VITERBI_MAX_LAGS``."""
+    dev = _device()
+    nc = _viterbi_scores("quarters", 80, 7, 97, 5)
+    tmat = _pitch_table(97)
+    counts = torch.tensor([70, 0, 1, 2, 69, 70, 33], dtype=torch.int64, device=dev)
+    plan = {"cluster": cluster, "rows_per_cluster": rows_per_cluster}
+    got = K.viterbi_path(nc, tmat, counts, 70, _plan=plan)
+    want = _loops(monkeypatch, nc, tmat, counts, 70)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    auto = K.viterbi_launch_plan(dev, 64, 418)
+    assert auto["table_in_smem"] == 1 and auto["max_lags"] == K.VITERBI_MAX_LAGS
+    assert auto["rows_per_cluster"] <= 3
+    far = K.viterbi_launch_plan(dev, 64, 1024)
+    assert far["table_in_smem"] == 0 and far["rows_per_cluster"] == 1
+
+
+def _cell_batch(seed):
+    """64 voiced int16 utterances of 2-20 s: the pitch cell's batches."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(2 * 16000, 20 * 16000, size=64)
+    return [_voiced(rng, int(n)) for n in lens]
+
+
+@pytest.mark.cuda
+def test_extract_iter_pitch_kernel_columns_are_the_loops(monkeypatch):
+    """A batch at the pitch cell's shapes (64 rows of 2-20 s in the
+    524,288-sample bucket, 418 lags) through ``ShardedExtractor(pitch=)``:
+    the rows with the kernel equal those of the loops bit for bit, and
+    ``pitch_kernel_steps`` counts every one of the ``pitch_steps``."""
+    from speech_tpu_torch import parallel as par
+    from speech_tpu_torch.ops import pitch as TP
+
+    dev = _device()
+    comp = STFTFrameComputer({**BANK, "num_filts": 80}, frame_length_ms=25,
+                             frame_shift_ms=10, precision="highest", device=dev)
+    batch = _cell_batch(46)
+    kernel = par.ShardedExtractor(comp, pitch=PITCH)
+    K.reset_launch_counts()
+    got = list(kernel.extract_iter([batch], min_batch=64))[0]
+    assert K.launch_counts()["viterbi_path"] == 1
+    assert kernel.stats["pitch_kernel_steps"] == kernel.stats["pitch_steps"] > 0
+    with monkeypatch.context() as m:
+        m.setattr(TP, "viterbi_on_kernel", lambda *a: False)
+        loops = par.ShardedExtractor(comp, pitch=PITCH)
+        want = list(loops.extract_iter([batch], min_batch=64))[0]
+    assert loops.stats["pitch_kernel_steps"] == 0
+    assert loops.stats["pitch_steps"] == kernel.stats["pitch_steps"]
+    assert len(got) == len(want) == 64
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.shape[1] == 83 and np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:Warning. Profiler clears events")
+def test_extract_pitch_range_holds_under_600_kernels():
+    """At the pitch cell's shapes the ``"extract.pitch"`` range of one
+    batch holds fewer than 600 kernels, the Viterbi's one among them."""
+    from torch.autograd import DeviceType
+
+    from speech_tpu_torch import parallel as par
+
+    dev = _device()
+    comp = STFTFrameComputer({**BANK, "num_filts": 80}, frame_length_ms=25,
+                             frame_shift_ms=10, precision="highest", device=dev)
+    ex = par.ShardedExtractor(comp, pitch=PITCH)
+    batch = _cell_batch(47)
+    lens = np.array([x.size for x in batch], dtype=np.int64)
+    max_len = ex.bucket_len(int(lens.max()))
+    padded = np.zeros((lens.size, max_len), np.int16)
+    for i, x in enumerate(batch):
+        padded[i, :x.size] = x
+    rows = torch.tensor(padded, device=dev)
+    feats = torch.zeros((lens.size, (max_len - comp.frame_length) // 160 + 1, 80), device=dev)
+    host = torch.from_numpy(lens)
+    ex._with_pitch(feats, rows, host)  # the warm-up batch
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ex._with_pitch(feats, rows, host)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = [e.time_range for e in on_card if e.name == "extract.pitch"]
+    assert len(ranges) == 1
+    kernels = [e for e in on_card if not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("Memcpy", "Memset"))
+               and ranges[0].start <= e.time_range.start
+               and e.time_range.end <= ranges[0].end]
+    assert len(kernels) < 600, len(kernels)
+    assert sum(1 for e in kernels if "viterbi_kernel" in e.name) == 1
 
 
 @pytest.mark.cuda

@@ -234,6 +234,7 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
         "stft_feats_int8": 0,
         "stft_feats_double": 0,
         "layout_rows": 0,
+        "viterbi_path": 0,
     }
 
 
