@@ -522,14 +522,15 @@ class StreamPool:
     Works with either computer (the STFT and SI streamers share the
     explicit-carry contract), or with any pre-built streamer honouring it
     (``init_state(streams=)`` / ``_process_impl`` / ``_finalize_impl``,
-    with valid-0 no-op steps: ``StreamingPitch``, ``StreamingKWS``,
-    ``StreamingSpeaker``).  The slots' states carry a leading stream axis,
-    and a :meth:`step` is one ``_process_impl`` over it; partial chunks are
-    consumed at once as masked chunks.  On a single device the tick is
-    **occupancy-tiered**: only the slots with pending samples are gathered
-    (``index_select``) into a power-of-two sub-batch, stepped, and
-    scattered back (``index_copy``), so a tick's cost follows the number of
-    active sessions, not the pool's capacity.  With a ``mesh``, each
+    with valid-0 no-op steps: ``StreamingPitch``, ``StreamingAppendPitch``,
+    ``StreamingKWS``, ``StreamingSpeaker``).  The slots' states carry a
+    leading stream axis, and a :meth:`step` is one ``_process_impl`` over
+    it; partial chunks are consumed at once as masked chunks.  On a single
+    device the tick is **occupancy-tiered**: only the slots with pending
+    samples are gathered (``index_select``) into a power-of-two sub-batch,
+    stepped, and scattered back (``index_copy``), so a tick's cost follows
+    the number of active sessions, not the pool's capacity; a close
+    finalizes the closing slots alone.  With a ``mesh``, each
     process ticks its own contiguous block of the slots (sessions are
     independent: the tick needs no collectives) and the emitted rows are
     gathered, so every process must drive the pool the same way.  A tick
@@ -604,6 +605,13 @@ class StreamPool:
     def capacity(self) -> int:
         return len(self._free)
 
+    @property
+    def stats(self) -> dict:
+        """The streamer's own counters (``stats`` of a streamer that keeps
+        them, such as :class:`~speech_tpu_torch.streaming.StreamingAppendPitch`'s
+        pitch frames), read now; empty for one that keeps none."""
+        return dict(getattr(self._stream, "stats", None) or {})
+
     def warmup(self, depths: Sequence[int] = (1,), occupancies: Sequence[int] = ()) -> None:
         """Run the tick at the given chunk depths (each padded to its
         power-of-two tier), the occupancy-tiered ticks at the given
@@ -625,6 +633,9 @@ class StreamPool:
                     idx = torch.zeros(tier, dtype=torch.int64, device=self._device)
                     self._tiered_step(idx, chunks[:tier], valids[:tier])
         self._stream._finalize_impl(self._states)
+        if self._tiered:  # a close's finalize of its own slot
+            idx = torch.zeros(1, dtype=torch.int64, device=self._device)
+            self._stream._finalize_impl(_tree_map(lambda a: a.index_select(0, idx), self._states))
 
     # -- session management ------------------------------------------------
 
@@ -792,14 +803,23 @@ class StreamPool:
                 -(-len(s.pending) // self._chunk) for s in sessions.values() if len(s.pending)
             )
             out.extend(self.step(only=set(handles), max_chunks=backlog))
-        fin_feats, fin_ns = self._readback(
-            *self._gathered(*self._stream._finalize_impl(self._states))
-        )
+        if self._tiered:
+            # only the closing slots: a finalize's cost follows them, not
+            # the pool's capacity (it writes no state back)
+            slots = [sessions[h].slot for h in handles]
+            idx = self._to_device(np.asarray(slots, np.int64))
+            fin = self._stream._finalize_impl(_tree_map(lambda a: a.index_select(0, idx),
+                                                        self._states))
+            rows = {h: pos for pos, h in enumerate(handles)}
+        else:
+            fin = self._gathered(*self._stream._finalize_impl(self._states))
+            rows = {h: sessions[h].slot for h in handles}
+        fin_feats, fin_ns = self._readback(*fin)
         for handle in handles:
             s = sessions[handle]
-            nf = int(fin_ns[s.slot])
+            nf = int(fin_ns[rows[handle]])
             if nf:
-                out.append((handle, fin_feats[s.slot, :nf].copy()))
+                out.append((handle, fin_feats[rows[handle], :nf].copy()))
             s.open = False
             del self._sessions[handle]
             self._free.append(s.slot)
@@ -841,7 +861,10 @@ class StreamServer:
     callers open, feed, and close sessions from any thread, a background
     thread coalesces feeds for up to ``max_wait_ms``, ticks the pool
     (backlogs drain as wide chunks, bounded by ``tick_chunks``), and
-    delivers feature blocks to per-session queues.
+    delivers feature blocks to per-session queues.  A closing session's
+    backlog goes through the same ticks as every other's, and the sessions
+    whose backlogs a tick emptied are finalized after it in one call
+    (:meth:`StreamPool.close_many`).
 
     Typical use::
 
@@ -898,6 +921,7 @@ class StreamServer:
         self._wait = float(max_wait_ms) / 1e3
         self._cmds = queue.SimpleQueue()
         self._results = {}
+        self._closing = {}  # handle -> the close futures (loop thread only)
         self._closed = False
         self._lock = threading.Lock()
         follower = self._relay is not None and not self._relay.front
@@ -908,6 +932,11 @@ class StreamServer:
         self._worker.start()
 
     # -- client side (any thread) ----------------------------------------
+
+    @property
+    def stats(self) -> dict:
+        """The pool's :attr:`StreamPool.stats`: its streamer's counters."""
+        return self._pool.stats
 
     def warmup(self, depths=None, occupancies=()) -> None:
         """Run the tick at its depths before traffic arrives (blocking;
@@ -953,7 +982,9 @@ class StreamServer:
 
     def close_session(self, handle: int) -> None:
         """Drain + finalize a session (blocking until flushed); its result
-        queue then ends."""
+        queue then ends.  Its backlog drains through the ticks, at
+        ``tick_chunks`` a tick as every session's, so that a close never
+        stalls the others by a wide drain of its own."""
         fut = Future()
         self._submit(("close", handle, fut), "close_session")
         fut.result()
@@ -1043,6 +1074,8 @@ class StreamServer:
             _settle(fut, handle)
         elif kind == "feed":
             _, handle, samples, _ = cmd
+            if handle in self._closing:
+                return  # fed after close: drop (the stream is ending)
             try:
                 self._pool.feed(handle, samples)
             except KeyError:
@@ -1055,24 +1088,46 @@ class StreamServer:
                 if q is not None:
                     q.put(e)
         elif kind == "close":
-            # queues may already be gone (iter_results drops a session's
-            # queue on a delivered error) -- never index unconditionally
+            # finalized once the ticks have drained its backlog
+            # (_finish_closes)
             _, handle, _ = cmd
             try:
-                for h, feats in self._pool.close_many([handle]):
-                    q = self._queue_of(h)
-                    if q is not None:
-                        q.put(feats)
-            except Exception as e:  # noqa: BLE001 -- to the caller
-                q = self._queue_of(handle)
-                if q is not None:
-                    q.put(e)
+                self._pool._session(handle)
+            except KeyError as e:
                 _settle(fut, exc=e)
                 return
-            q = self._queue_of(handle)
+            self._closing.setdefault(handle, []).append(fut)
+
+    def _finish_closes(self) -> None:
+        """Finalize, in one call, the closing sessions whose backlogs the
+        ticks have drained, and end their result queues."""
+        sessions = self._pool._sessions
+        done = [h for h in self._closing if not len(sessions[h].pending)]
+        if not done:
+            return
+        futs = [f for h in done for f in self._closing.pop(h)]
+        # queues may already be gone (iter_results drops a session's
+        # queue on a delivered error) -- never index unconditionally
+        try:
+            outs = self._pool.close_many(done)
+        except Exception as e:  # noqa: BLE001 -- to the callers
+            for h in done:
+                q = self._queue_of(h)
+                if q is not None:
+                    q.put(e)
+            for f in futs:
+                _settle(f, exc=e)
+            return
+        for h, feats in outs:
+            q = self._queue_of(h)
+            if q is not None:
+                q.put(feats)
+        for h in done:
+            q = self._queue_of(h)
             if q is not None:
                 q.put(None)
-            _settle(fut)
+        for f in futs:
+            _settle(f)
 
     def _run(self) -> None:
         with _device_scope(self._device):
@@ -1096,6 +1151,9 @@ class StreamServer:
                 for handle, q in live:
                     if handle in sessions:
                         q.put(RuntimeError("server is closed"))
+                for futs in self._closing.values():
+                    for f in futs:
+                        _settle(f, exc=RuntimeError("server is closed"))
                 return
             cmds = []
             if cmd is not False:
@@ -1115,6 +1173,7 @@ class StreamServer:
             for c in cmds:
                 self._handle(c)
             self._tick(self._tick_chunks)
+            self._finish_closes()
 
     def _follow(self) -> None:
         """A follower's loop: apply the front's commands to this rank's
@@ -1128,6 +1187,7 @@ class StreamServer:
                 for c in cmds:
                     self._handle((*c, None))
                 self._tick(max_chunks)
+                self._finish_closes()
 
     def _tick(self, max_chunks: int) -> None:
         sessions = self._pool._sessions

@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import config as _config
 from .compute import (
@@ -50,6 +51,8 @@ __all__ = [
     "StreamingSI",
     "PitchStreamState",
     "StreamingPitch",
+    "AppendPitchState",
+    "StreamingAppendPitch",
 ]
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -134,6 +137,16 @@ def _counts(valid_len, streams: int, limit: int, device):
     else:
         v = torch.full((streams,), int(valid_len), dtype=torch.int64, device=device)
     return torch.clamp(v, 0, limit)
+
+
+def _scrub(frames, nin):
+    """Zero rows at/after the valid counts of ``frames (S, cap, F)``
+    (garbage must never reach arithmetic that could spill into valid
+    rows); returns the counts clipped to ``[0, cap]`` too."""
+    cap = frames.shape[1]
+    nin = torch.clamp(nin, 0, cap)
+    mask = torch.arange(cap, device=frames.device)[None, :] < nin[:, None]
+    return torch.where(mask[..., None], frames, 0), nin
 
 
 def _floordiv(a, b: int):
@@ -1080,3 +1093,178 @@ class StreamingPitch(_Streamer):
         ``(f0, nccf)`` numpy arrays (testing helper)."""
         out = self._compacted(signal)
         return out[:, 0], out[:, 1]
+
+
+class AppendPitchState(NamedTuple):
+    """Carry between chunks for :class:`StreamingAppendPitch`."""
+
+    fbank: StreamState  # the filter-bank stream's
+    pitch: tuple  # (PitchStreamState, the process-pitch step's carry)
+    held: torch.Tensor  # (hold_len, num_coeffs) filter-bank rows awaiting
+    # their pitch columns (head-valid, zero beyond n_held)
+    n_held: torch.Tensor  # int64
+
+
+class StreamingAppendPitch(_FrameStreamer):
+    """An STFT computer's filter-bank rows with the three online Kaldi
+    pitch columns pasted on: Kaldi online2's feature pipeline with
+    ``add_pitch``, where ``OnlineAppendFeature`` joins the base features to
+    ``OnlineProcessPitch`` over ``OnlinePitchFeature``.
+
+    One state and one ``_process_impl`` per tick on the stream axis, as the
+    other streamers (:class:`~speech_tpu_torch.serve.StreamPool` takes it as
+    its computer).  A tick runs
+
+    - the filter bank: :class:`StreamingSTFT`'s own rows, bit for bit;
+    - the pitch: :class:`StreamingPitch` (``[f0, nccf]`` rows, emitted once
+      ``lookahead_frames`` frames follow them), then
+      :class:`~speech_tpu_torch.streaming_post.StreamingProcessPitch` (POV,
+      normalised log pitch over the rows that have arrived, delta), which
+      holds back ``delta_window`` rows more;
+    - the join: filter-bank rows wait in ``held`` until their pitch columns
+      exist, and go out with them.  ``finalize`` flushes both, and the rows
+      past the track (it ends 2-3 frames before the filter bank) repeat its
+      last row's columns, zeros with no track, as the batch path's paste.
+
+    ``pitch`` is a configuration's ``"pitch"`` block: the keyword arguments
+    of :class:`StreamingPitch` (``lookahead_frames`` included) and of the
+    process step (``normalization_window``, ``delta_window``).  The
+    tracker runs on the computer's device in its dtype.
+
+    A valid-0 step leaves the state bitwise as it was, and a tick queues no
+    host synchronisation.  The pitch share of a tick runs inside a
+    ``record_function("stream.pitch")`` range and the filter bank's inside
+    ``"stream.fbank"``; :attr:`stats` counts the tracker's frames.
+    """
+
+    _counter = "n_held"
+
+    def __init__(self, computer: ShortTimeFourierTransformFrameComputer, pitch: dict,
+                 chunk_size: int = 1600):
+        from .streaming_post import StreamingProcessPitch
+
+        pitch = dict(pitch)
+        post = {k: pitch.pop(k) for k in ("normalization_window", "delta_window") if k in pitch}
+        self.fbank = StreamingSTFT(computer, chunk_size)
+        self.tracker = StreamingPitch(computer.sampling_rate, chunk_size, dtype=computer._dtype,
+                                      device=computer.device, **pitch)
+        self.process = StreamingProcessPitch(**post, device=self.tracker.device)
+        self.computer = computer
+        self.chunk_size = self.fbank.chunk_size
+        self.device = self.fbank.device
+        self._dtype = self.fbank._dtype
+        self.num_coeffs = computer.num_coeffs + 3
+        tr, fb = self.tracker, self.fbank
+        if tr.shift * tr.down != fb.frame_shift * tr.up:
+            raise ValueError(
+                f"the pitch frame shift ({tr.shift} samples at {tr.work_rate} Hz) is not the "
+                f"filter bank's ({fb.frame_shift} samples)")
+        if tr.span * tr.down < (fb.frame_length - fb.pad_left) * tr.up:
+            # a pitch frame would end before the filter bank's frame of the
+            # same index, and its columns could come before its row
+            raise ValueError("a pitch frame spans less input than a filter-bank frame")
+        # the most filter-bank rows that can wait: the frames the filter
+        # bank has ahead of the tracker's absorbed ones (a staged chunk, the
+        # front end's delay and a pitch frame's span, in input samples, and
+        # two for the floors of both frame counts), the tracker's lookahead
+        # and the delta's right context, and one spare
+        ahead = fb.pad_left - fb.frame_length + self.chunk_size - 1 + (
+            (tr.delay_w + tr.span) * tr.down + tr.up - 1) // tr.up
+        self.hold_len = -(-ahead // fb.frame_shift) + 3 + tr.lookahead + self.process.delta_window
+        self._counts = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self._stepped = self._backtracked = 0
+
+    @property
+    def stats(self) -> dict:
+        """The tracker's frames since construction (read back from the
+        card; the ticks only queue their counts):
+        ``pitch_frames_tracked``, frames absorbed into the Viterbi in the
+        sessions' rows; ``pitch_frames_stepped``, rows times frames the
+        Viterbi loop stepped over, masked rows included;
+        ``pitch_frames_emitted``, track frames the tracker emitted;
+        ``pitch_backtrack_steps``, rows times the backtrack loop's steps."""
+        tracked, emitted = self._counts.tolist()
+        return {"pitch_frames_tracked": tracked, "pitch_frames_stepped": self._stepped,
+                "pitch_frames_emitted": emitted, "pitch_backtrack_steps": self._backtracked}
+
+    def init_state(self, streams=None) -> AppendPitchState:
+        """A fresh state; ``streams`` gives every leaf a leading axis."""
+        lead = () if streams is None else (int(streams),)
+        return AppendPitchState(
+            fbank=self.fbank.init_state(streams),
+            pitch=(self.tracker.init_state(streams),
+                   self.process.init_state(2, self._dtype, streams)),
+            held=torch.zeros(lead + (self.hold_len, self.computer.num_coeffs), dtype=self._dtype,
+                             device=self.device),
+            n_held=torch.zeros(lead, dtype=torch.int64, device=self.device),
+        )
+
+    def _count(self, tracked, emitted, streams: int, chunks: int, snapshots: int):
+        tr = self.tracker
+        self._stepped += streams * chunks * tr.max_frames_chunk
+        self._backtracked += streams * snapshots * tr.ring_len
+        self._counts += torch.stack([tracked.sum(), emitted.sum()])
+
+    def _pitch_step(self, state, chunk, v):
+        """The pitch share of a tick: the tracker, then the process step;
+        returns ``(state, columns (S, cap, 3), n)``."""
+        with record_function("stream.pitch"):
+            track, post = state
+            new, rows, ne = self.tracker._process_streams(track, chunk, v)
+            post, cols, nc = self.process._step_streams(post, rows, ne)
+            k = chunk.shape[1] // self.chunk_size
+            self._count(new.n_frames - track.n_frames, ne, chunk.shape[0], k, k)
+        return (new, post), cols, nc
+
+    def _pitch_finalize(self, state):
+        with record_function("stream.pitch"):
+            track, post = state
+            rows, pending = self.tracker._finalize_streams(track)
+            post, c1, n1 = self.process._step_streams(post, rows, pending)
+            c2, n2 = self.process._finalize_streams(post)
+            cols = _paste(torch.nn.functional.pad(_scrub(c1, n1)[0], (0, 0, 0, c2.shape[1])),
+                          c2, n1)
+            # the frames finalize absorbed: all it emits less those pending before
+            tracked = pending - (track.n_frames - track.n_out)
+            self._count(tracked, pending, pending.shape[0], 1 + self.tracker.k_flush, 1)
+        return cols, n1 + n2
+
+    def _joined(self, state, fb, nf, rows: int):
+        """The held rows followed by the new filter-bank rows ``fb``, at
+        least ``rows`` of them, and their count."""
+        block = _scrub(fb, nf)[0]
+        pad = max(block.shape[1], rows - self.hold_len)
+        joined = _paste(torch.nn.functional.pad(state.held, (0, 0, 0, pad)), block, state.n_held)
+        return joined, state.n_held + nf
+
+    def _process_streams(self, state: AppendPitchState, chunk, v):
+        if chunk.shape[1] % self.chunk_size:
+            raise ValueError(
+                f"sample buffers must be a multiple of chunk_size ({self.chunk_size}); "
+                f"got {chunk.shape[1]}")
+        with record_function("stream.fbank"):
+            fb_state, fb, nf = self.fbank._process_streams(state.fbank, chunk, v)
+        pitch, cols, nc = self._pitch_step(state.pitch, chunk, v)
+        cap = cols.shape[1]
+        joined, total = self._joined(state, fb, nf, cap)
+        # every row with its pitch columns goes out: the track never leads
+        # the filter bank, so nc <= total
+        out = torch.cat([joined[:, :cap], cols], dim=-1)
+        held = _window(joined, nc, self.hold_len)
+        return AppendPitchState(fb_state, pitch, held, total - nc), out, nc
+
+    def _finalize_streams(self, state: AppendPitchState):
+        with record_function("stream.fbank"):
+            fb, nf = self.fbank._finalize_streams(state.fbank)
+        cols, nc = self._pitch_finalize(state.pitch)
+        joined, total = self._joined(state, fb, nf, 0)
+        R, cap = joined.shape[1], cols.shape[1]
+        j = torch.arange(R, device=joined.device)[None, :]
+        # past the track, its last row (zeros with no track)
+        last = _take_rows(cols, torch.clamp(nc - 1, 0, cap - 1)[:, None])
+        last = torch.where((nc > 0)[:, None, None], last, 0)
+        pitch = torch.where((j < nc[:, None])[..., None],
+                            _take_rows(cols, torch.clamp(j, max=cap - 1).expand(cols.shape[0], R)),
+                            last)
+        out = _scrub(torch.cat([joined, pitch], dim=-1), total)[0]
+        return out, total

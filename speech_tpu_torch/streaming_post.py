@@ -36,14 +36,17 @@ import torch
 
 from .ops import postops as _postops
 from .ops._device import host_constant, resolve_device
+from .ops.pitch import nccf_to_pov
 from .ops.plp import plp as _plp
 from .ops.postops import _linear_scan, _pcen_compress, delta_filters
+from .ops.stft import ieee_float32
 from .streaming import (
     _counts,
     _drop,
     _floordiv,
     _lift,
     _paste,
+    _scrub,
     _take_rows,
     _torch_dtype,
     _tree_leaves,
@@ -57,22 +60,13 @@ __all__ = [
     "StreamingPipeline",
     "StreamingPostChain",
     "StreamingPostOp",
+    "StreamingProcessPitch",
     "StreamingSlidingCMVN",
     "StreamingSplice",
     "StreamingStack",
     "StreamingVAD",
     "streaming_post_op",
 ]
-
-
-def _scrub(frames, nin):
-    """Zero rows at/after the valid counts of ``frames (S, cap, F)``
-    (garbage must never reach arithmetic that could spill into valid
-    rows); returns the counts clipped to ``[0, cap]`` too."""
-    cap = frames.shape[1]
-    nin = torch.clamp(nin, 0, cap)
-    mask = torch.arange(cap, device=frames.device)[None, :] < nin[:, None]
-    return torch.where(mask[..., None], frames, 0), nin
 
 
 def _lead(streams):
@@ -751,6 +745,114 @@ class StreamingVAD(StreamingPostOp):
             pre = ptot
         voiced = self._decide(ewin, base_abs, pre, seen, w)
         return self._emit_block(out_frames, voiced, nout)
+
+
+class StreamingProcessPitch(StreamingPostOp):
+    """Online Kaldi ``process-kaldi-pitch-feats``, as Kaldi's
+    ``OnlineProcessPitch`` computes it from the frames its source has
+    ready: ``[f0, nccf]`` track rows in (the columns of
+    :class:`~speech_tpu_torch.streaming.StreamingPitch`), the three columns
+    of :func:`speech_tpu_torch.ops.pitch.pitch_feats_from_track` out:
+
+    - the POV feature ``2 ((1.001 - nccf)^0.15 - 1)``;
+    - log f0 less its mean weighted by ``pov(nccf) + 1e-6`` over the
+      centred window of ``normalization_window`` frames, clipped at frame 0
+      and at the newest track row of the step that emits the frame: a
+      frame's window reads the rows that had arrived when it went out;
+    - the order-1 delta of log f0 over ``[t - delta_window, t +
+      delta_window]``, frame 0 standing in before the track and, at
+      ``finalize``, the last frame after it.
+
+    No scale and no noise, as the batch form.  Rows go out
+    ``delta_window`` frames late (the delta's right context), and
+    ``finalize`` flushes them.  The carry keeps the last ``max(
+    normalization_window // 2, delta_window) + delta_window`` track rows
+    and their count; a step's window sums are one masked product in IEEE
+    float32."""
+
+    def __init__(self, normalization_window: int = 151, delta_window: int = 2, device=None):
+        if normalization_window < 1:
+            raise ValueError(f"normalization_window must be >= 1, got {normalization_window}")
+        if delta_window < 1:
+            raise ValueError(f"delta_window must be >= 1, got {delta_window}")
+        super().__init__(device)
+        self.normalization_window = int(normalization_window)
+        self.delta_window = int(delta_window)
+        self._left = self.normalization_window // 2  # frames before t in its window
+        self._carry = max(self._left, self.delta_window) + self.delta_window
+        self._taps = [float(c) for c in delta_filters(1, self.delta_window)[0]]
+
+    def out_width(self, in_width: int) -> int:
+        if in_width != 2:
+            raise ValueError(f"process-pitch takes [f0, nccf] rows, got width {in_width}")
+        return 3
+
+    def fin_cap(self) -> int:
+        return self.delta_window
+
+    def init_state(self, in_width: int, dtype, streams=None):
+        self.out_width(in_width)
+        lead = _lead(streams)
+        return (
+            torch.zeros(lead + (self._carry, 2), dtype=_torch_dtype(dtype), device=self.device),
+            torch.zeros(lead, dtype=torch.int64, device=self.device),  # track rows seen
+        )
+
+    def _columns(self, stream, base, first, n_track, cap: int):
+        """Output rows ``first .. first + cap - 1`` (absolute frames, ``(S,)``
+        starts) from ``stream (S, R, 2)``, whose row ``r`` is track frame
+        ``base + r``; frames at or past ``n_track`` have not arrived."""
+        S, R, _ = stream.shape
+        dev = stream.device
+        a = base[:, None] + torch.arange(R, device=dev)[None, :]  # (S, R)
+        ok = (a >= 0) & (a < n_track[:, None])
+        f0, nccf = stream[..., 0], stream[..., 1]
+        logf0 = torch.where(ok, torch.log(torch.where(ok, f0, 1.0)), 0.0)
+        w = torch.where(ok, nccf_to_pov(nccf) + 1e-6, 0.0)
+        t = first[:, None] + torch.arange(cap, device=dev)[None, :]  # (S, cap)
+        lo = torch.clamp_min(t - self._left, 0)
+        hi = torch.minimum(t - self._left + self.normalization_window, n_track[:, None])
+        inside = (a[:, None, :] >= lo[..., None]) & (a[:, None, :] < hi[..., None])
+        with ieee_float32():
+            sums = torch.bmm(inside.to(stream.dtype), torch.stack([w * logf0, w], dim=-1))
+        last = torch.clamp_min(n_track - 1, 0)[:, None]
+
+        def at(frames):
+            return torch.gather(logf0, 1, torch.clamp(frames - base[:, None], 0, R - 1))
+
+        mean = sums[..., 0] / torch.clamp_min(sums[..., 1], 1e-6)
+        dlog = None
+        for d, c in zip(range(-self.delta_window, self.delta_window + 1), self._taps):
+            if c == 0.0:
+                continue
+            term = at(torch.minimum(torch.clamp_min(t + d, 0), last)) * c
+            dlog = term if dlog is None else dlog + term
+        nccf_t = torch.gather(nccf, 1, torch.clamp(t - base[:, None], 0, R - 1))
+        pov_feat = 2.0 * (torch.exp(0.15 * torch.log(1.001 - nccf_t)) - 1.0)
+        return torch.stack([pov_feat, at(t) - mean, dlog], dim=-1)
+
+    def _step_streams(self, state, frames, nin):
+        carry, n = state
+        frames, nin = _scrub(frames, nin)
+        S, cap, _ = frames.shape
+        if cap == 0:
+            return (state,) + self._empty(frames, 3)
+        K, dw = self._carry, self.delta_window
+        stream = torch.cat([carry.to(frames.dtype), frames], dim=1)
+        n_new = n + nin
+        first = torch.clamp_min(n - dw, 0)
+        n_out = torch.clamp_min(n_new - dw, 0) - first
+        out = self._columns(stream, n - K, first, n_new, cap)
+        out = torch.where((torch.arange(cap, device=out.device) < n_out[:, None])[..., None], out, 0)
+        return (_window(stream, nin, K), n_new), out, n_out
+
+    def _finalize_streams(self, state):
+        carry, n = state
+        first = torch.clamp_min(n - self.delta_window, 0)
+        out = self._columns(carry, n - self._carry, first, n, self.delta_window)
+        n_out = n - first
+        valid = torch.arange(self.delta_window, device=out.device) < n_out[:, None]
+        return torch.where(valid[..., None], out, 0), n_out
 
 
 class StreamingPostChain(StreamingPostOp):

@@ -784,6 +784,65 @@ def test_stream_ticks_queue_no_sync(kind):
             assert (got - want).abs().max().item() <= TOL_FLOAT
 
 
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:Synchronization debug mode is a prototype")
+def test_fbank_pitch_stream_at_256_sessions_matches_cpu_float64():
+    """The benchmark's fbank40-pitch-kaldi-online streamer with 256 sessions
+    on the stream axis, 3.5 s of 100 ms chunks, every tick under
+    set_sync_debug_mode("error"); three voiced sessions (slots 0, 97 and
+    255) against the same stream in float64 on the CPU: the filter-bank
+    columns within TOL_FLOAT, the pitch columns' log pitch on all but a
+    near-tie's rows within 1e-4 of float64, and the row counts exact."""
+    import json
+
+    from bench_port.kinds.corpus_pitch import synth
+    from speech_tpu_torch.alias import alias_factory_subclass_from_arg
+    from speech_tpu_torch.compute import FrameComputer
+    from speech_tpu_torch.streaming import StreamingAppendPitch
+
+    dev = _device()
+    with open("bench_port/configs/fbank40-pitch-kaldi-online.json") as f:
+        config = json.load(f)
+    with open("bench_port/mixes/stream-pitch-replay.json") as f:
+        audio = json.load(f)["audio"]
+
+    def make(device, dtype):
+        comp = alias_factory_subclass_from_arg(
+            FrameComputer, {**config["computer"], "device": device, "dtype": dtype})
+        return StreamingAppendPitch(comp, config["pitch"], 1600)
+
+    card, host = make(dev, "float32"), make("cpu", "float64")
+    S, n = 256, 56000
+    sigs = synth([n] * S, 20261019, "gpu-test", audio, 16000, "cpu")
+    x = torch.tensor(np.stack(sigs).astype(np.float32))
+    state = card.init_state(streams=S)
+    rows = [[] for _ in range(S)]
+    for c in range(n // 1600):
+        chunk = x[:, c * 1600:(c + 1) * 1600].to(dev)
+        v = torch.full((S,), 1600, dtype=torch.int64, device=dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, out, nv = card._process_impl(state, chunk, v)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out, nv = out.cpu().double(), nv.cpu()
+        for s in (0, 97, 255):
+            rows[s].append(out[s, : int(nv[s])])
+    out, nv = card._finalize_impl(state)
+    out, nv = out.cpu().double(), nv.cpu()
+    for s in (0, 97, 255):
+        got = torch.cat(rows[s] + [out[s, : int(nv[s])]])
+        want = torch.as_tensor(host.transform(sigs[s]))
+        assert got.shape == want.shape and got.shape[0] == 350
+        assert (got[:, :40] - want[:, :40]).abs().max().item() <= TOL_FLOAT
+        d = (got[:, 41] - want[:, 41]).abs()
+        assert (d > np.log1p(0.005)).double().mean().item() <= 0.02
+        assert d.median().item() <= 1e-4
+    stats = card.stats
+    assert stats["pitch_frames_tracked"] == S * 346 and stats["pitch_frames_emitted"] == S * 346
+
+
 # --- multi-device (world size 1 on NCCL) and the exported frontend ----------
 
 
